@@ -1,0 +1,386 @@
+"""iCEM — improved Cross-Entropy Method planner.
+
+Counterpart of ``icem_tpu/controllers/icem.py`` (the unrolled CEM loop):
+
+- colored-noise (1/f^beta) action sampling
+- population decay: n_i = max(2*elites_size, int(n_{i-1} / gamma)), exact
+  integers from the config, one rollout per CEM iteration at its own size
+- shift-elites-over-time at iteration 0: elites' actions shifted one step
+  with a freshly sampled last action, re-simulated
+- keep-previous-elites at i>0: the top fraction re-enters the candidate set
+  with its already-computed cost, not re-simulated
+- add mean as a candidate in the last iteration
+- clip-at-bounds sampling
+- top-k elite refit with alpha-momentum on mean and std
+- execute the best seen action of the final iteration, then shift the mean
+  one step and reset std
+
+Randomness comes from the ``torch.Generator`` in the planner state, drawn in
+a fixed order, so a plan step is reproducible from its seed; the draws differ
+from the JAX package's. A plan step makes no host round trip: the first step
+of an episode masks its missing elites with a Python flag.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from icem_torch.device import resolve_device
+from icem_torch.models.base import rollout_open_loop, trajectory_cost
+from icem_torch.ops.colored_noise import sample_colored_action_noise
+
+
+@dataclass(frozen=True)
+class ICemConfig:
+    """Static iCEM hyperparameters (names and defaults as in the JAX package)."""
+
+    horizon: int = 30
+    num_simulated_trajectories: int = 40
+    factor_decrease_num: float = 1.25
+    cost_along_trajectory: str = "sum"
+    use_env_reward_as_cost: bool = False
+    # action_sampler_params
+    alpha: float = 0.1
+    elites_size: int = 10
+    opt_iterations: int = 3
+    init_std: float = 0.5
+    use_mean_actions: bool = True
+    keep_previous_elites: bool = True
+    shift_elites_over_time: bool = True
+    fraction_elites_reused: float = 0.3
+    noise_beta: float = 1.0
+    # action space
+    action_dim: int = 1
+    action_low: tuple = (-1.0,)
+    action_high: tuple = (1.0,)
+    cem_loop: str = "unrolled"
+
+    def __post_init__(self):
+        if self.num_simulated_trajectories < 2:
+            raise ValueError("At least two trajectories needed!")
+        if self.cem_loop == "scan":
+            raise NotImplementedError(
+                "cem_loop='scan' is not ported to icem_torch yet; use 'unrolled'")
+        if self.cem_loop != "unrolled":
+            raise ValueError(f"cem_loop must be 'unrolled', got {self.cem_loop!r}")
+
+    @property
+    def num_elites(self) -> int:
+        ne = min(self.elites_size, self.num_simulated_trajectories // 2)
+        return max(ne, 2)
+
+    @property
+    def elites_kept(self) -> int:
+        """Rows of elite memory reused per step."""
+        return int(self.num_elites * self.fraction_elites_reused)
+
+    @property
+    def population_schedule(self) -> tuple:
+        """Fresh-sample count per CEM iteration."""
+        sizes = []
+        n = self.num_simulated_trajectories
+        for i in range(self.opt_iterations):
+            if i > 0:
+                n = max(self.elites_size * 2, int(n / self.factor_decrease_num))
+            sizes.append(n)
+        return tuple(sizes)
+
+    @property
+    def model_evals_per_timestep(self) -> int:
+        return sum(
+            max(self.elites_size * 2,
+                int(self.num_simulated_trajectories / self.factor_decrease_num**i))
+            for i in range(self.opt_iterations)
+        ) * self.horizon
+
+    def bounds(self, device):
+        """(low, high) as float32 tensors on ``device``, made once per device:
+        a copy from host memory would make the host wait for the card."""
+        return _bounds(self, torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def _bounds(cfg: ICemConfig, device: torch.device):
+    return (torch.tensor(cfg.action_low, dtype=torch.float32, device=device),
+            torch.tensor(cfg.action_high, dtype=torch.float32, device=device))
+
+
+class ICemState(NamedTuple):
+    """Planner state."""
+
+    mean: torch.Tensor           # [h, d]
+    std: torch.Tensor            # [h, d]
+    elite_actions: torch.Tensor  # [K, h, d] sorted ascending by cost
+    elite_costs: torch.Tensor    # [K]
+    elite_last_obs: torch.Tensor  # [K, obs_dim] final predicted obs per elite
+    have_elites: bool            # False until the first update
+    generator: torch.Generator   # the planner's random stream
+
+
+class PlanResult(NamedTuple):
+    action: torch.Tensor          # [d] executed action (best trajectory's first)
+    state: ICemState              # planner state after the step
+    expected_cost: torch.Tensor   # min cost of the final iteration
+    best_actions: torch.Tensor    # [h, d] full best plan
+    best_last_obs: torch.Tensor   # [obs_dim] best plan's final predicted obs
+
+
+def init_mean(cfg: ICemConfig, device) -> torch.Tensor:
+    """Center of the action space."""
+    low, high = cfg.bounds(device)
+    return torch.zeros((cfg.horizon, cfg.action_dim), device=device) + (high + low) / 2.0
+
+
+def init_std(cfg: ICemConfig, device) -> torch.Tensor:
+    """init_std * half action range."""
+    low, high = cfg.bounds(device)
+    return (torch.ones((cfg.horizon, cfg.action_dim), device=device)
+            * (high - low) / 2.0 * cfg.init_std)
+
+
+def init_state(cfg: ICemConfig, obs_dim: int, generator: torch.Generator) -> ICemState:
+    """Fresh planner state on the generator's device."""
+    device = generator.device
+    K = cfg.num_elites
+    return ICemState(
+        mean=init_mean(cfg, device),
+        std=init_std(cfg, device),
+        elite_actions=torch.zeros((K, cfg.horizon, cfg.action_dim), device=device),
+        elite_costs=torch.full((K,), float("inf"), device=device),
+        elite_last_obs=torch.zeros((K, obs_dim), device=device),
+        have_elites=False,
+        generator=generator,
+    )
+
+
+def sample_action_sequences(cfg: ICemConfig, generator: torch.Generator, mean, std,
+                            num_traj: int):
+    """Colored-noise (or white) sampling, scaled, shifted and clipped to bounds."""
+    if cfg.noise_beta > 0:
+        noise = sample_colored_action_noise(
+            generator, cfg.noise_beta, num_traj, cfg.horizon, cfg.action_dim)
+    else:
+        noise = torch.randn((num_traj, cfg.horizon, cfg.action_dim),
+                            generator=generator, device=generator.device)
+    low, high = cfg.bounds(mean.device)
+    return torch.clamp(noise * std + mean, low, high)
+
+
+def top_k_ascending(costs, k: int):
+    """Indices of the k smallest costs, ascending, ties to the lower index.
+
+    Non-finite costs, -inf included, rank last: they are divergence
+    artifacts, not good trajectories. ``torch.topk`` does not promise an order
+    among ties, so this is a stable sort's prefix.
+    """
+    costs = torch.where(torch.isfinite(costs), costs, float("inf"))
+    return torch.argsort(costs, stable=True)[:k]
+
+
+def _refit(cfg: ICemConfig, mean, std, cand_actions, cand_costs, cand_last_obs):
+    """Elite selection + alpha-momentum distribution update.
+
+    Returns (mean, std, elite_actions, elite_costs, elite_last_obs).
+    """
+    elite_idx = top_k_ascending(cand_costs, cfg.num_elites)
+    elite_actions = cand_actions[elite_idx]
+    elite_costs = cand_costs[elite_idx]
+    elite_last_obs = cand_last_obs[elite_idx]
+
+    new_mean = torch.mean(elite_actions, dim=0)
+    new_std = torch.std(elite_actions, dim=0, correction=0)
+    mean = (1.0 - cfg.alpha) * new_mean + cfg.alpha * mean
+    std = (1.0 - cfg.alpha) * new_std + cfg.alpha * std
+    return mean, std, elite_actions, elite_costs, elite_last_obs
+
+
+def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
+              model_state) -> PlanResult:
+    """One environment step of iCEM planning.
+
+    predict_fn: batched (model_state, obs, action) -> (model_state, obs,
+                reward), optionally with a whole-horizon ``.rollout``.
+    cost_fn:    batched (obs, act, next_obs) -> cost.
+    obs:        [obs_dim] current observation.
+    model_state: forward-model state synced to reality.
+    """
+    mean, std = pstate.mean, pstate.std
+    gen = pstate.generator
+    have_elites = pstate.have_elites
+    elite_actions, elite_costs = pstate.elite_actions, pstate.elite_costs
+    elite_last_obs = pstate.elite_last_obs
+    device = mean.device
+
+    E = cfg.elites_kept
+    last_iter = cfg.opt_iterations - 1
+    best_action_seq = best_cost = best_last_obs = None
+
+    for i, n_i in enumerate(cfg.population_schedule):
+        fresh = sample_action_sequences(cfg, gen, mean, std, n_i)
+        if cfg.use_mean_actions and i == last_iter:
+            fresh[0] = mean
+
+        # -- assemble simulation set -------------------------------------
+        if i == 0 and cfg.shift_elites_over_time and E > 0:
+            # elites' actions shifted one step + fresh last action; masked
+            # out until elites exist
+            last_step = sample_action_sequences(cfg, gen, mean, std, E)[:, -1:, :]
+            shifted = torch.cat([elite_actions[:E, 1:, :], last_step], dim=1)
+            sim_actions = torch.cat([fresh, shifted], dim=0)
+            sim_valid = torch.cat([torch.ones(n_i, dtype=torch.bool, device=device),
+                                   torch.full((E,), have_elites, device=device)])
+        else:
+            sim_actions = fresh
+            sim_valid = torch.ones(n_i, dtype=torch.bool, device=device)
+
+        # -- simulate ------------------------------------------------------
+        traj = rollout_open_loop(predict_fn, model_state, obs, sim_actions)
+        sim_costs = trajectory_cost(cost_fn, traj, cfg.cost_along_trajectory,
+                                    cfg.use_env_reward_as_cost)
+        sim_last_obs = traj.next_observations[-1]  # [p, obs_dim]
+
+        # -- candidates: fresh(+shifted) plus kept elites (cost reuse) ----
+        if i > 0 and cfg.keep_previous_elites and E > 0:
+            cand_actions = torch.cat([sim_actions, elite_actions[:E]], dim=0)
+            cand_costs = torch.cat([sim_costs, elite_costs[:E]], dim=0)
+            cand_last_obs = torch.cat([sim_last_obs, elite_last_obs[:E]], dim=0)
+            cand_valid = torch.cat([sim_valid, torch.ones(E, dtype=torch.bool, device=device)])
+        else:
+            cand_actions, cand_costs = sim_actions, sim_costs
+            cand_last_obs, cand_valid = sim_last_obs, sim_valid
+
+        # invalid rows AND non-finite costs rank last
+        cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
+                                 cand_costs, float("inf"))
+
+        best_idx = torch.argmin(cand_costs)  # the first minimum
+        best_action_seq = cand_actions[best_idx]
+        best_cost = cand_costs[best_idx]
+        best_last_obs = cand_last_obs[best_idx]
+
+        mean, std, elite_actions, elite_costs, elite_last_obs = _refit(
+            cfg, mean, std, cand_actions, cand_costs, cand_last_obs)
+        have_elites = True
+
+    # execute the best trajectory's FIRST action, not the mean
+    executed = best_action_seq[0]
+    # shift mean one step, preserving the last entry; reset std
+    mean = torch.cat([mean[1:], mean[-1:]], dim=0)
+    std = init_std(cfg, device)
+
+    new_state = ICemState(
+        mean=mean, std=std,
+        elite_actions=elite_actions, elite_costs=elite_costs,
+        elite_last_obs=elite_last_obs, have_elites=have_elites, generator=gen,
+    )
+    return PlanResult(
+        action=executed, state=new_state, expected_cost=best_cost,
+        best_actions=best_action_seq, best_last_obs=best_last_obs,
+    )
+
+
+_ICEM_SAMPLER_KEYS = (
+    "alpha", "elites_size", "opt_iterations", "init_std", "use_mean_actions",
+    "keep_previous_elites", "shift_elites_over_time", "fraction_elites_reused",
+    "noise_beta",
+)
+
+
+class MpcICem:
+    """Controller with the reference API (beginning_of_rollout / get_action)
+    around ``plan_step`` and its state. Settings keys the port does not use
+    (``verbose``, ...) are accepted and ignored."""
+
+    def __init__(self, *, env, forward_model, action_sampler_params=None,
+                 horizon=30, num_simulated_trajectories=40, factor_decrease_num=1.25,
+                 cost_along_trajectory="sum", use_env_reward_as_cost=False,
+                 do_visualize_plan=False, seed: Optional[int] = None,
+                 sharded=False, cem_loop="auto", device=None, **kwargs):
+        asp = dict(action_sampler_params or {})
+        unknown = set(asp) - set(_ICEM_SAMPLER_KEYS)
+        if unknown:
+            raise TypeError(f"unknown action_sampler_params {sorted(unknown)}; "
+                            f"valid: {sorted(_ICEM_SAMPLER_KEYS)}")
+        if sharded is True:
+            raise NotImplementedError(
+                "sharded=True is not ported to icem_torch yet: it plans on one device")
+        if do_visualize_plan:
+            raise NotImplementedError("visualize_plan is not ported to icem_torch yet")
+        if cem_loop == "auto":
+            # the planar envs, all this port has, run the unrolled loop
+            cem_loop = "unrolled"
+        self.env = env
+        self.forward_model = forward_model
+        self.device = resolve_device(device)
+        self.cfg = ICemConfig(
+            horizon=horizon,
+            num_simulated_trajectories=num_simulated_trajectories,
+            factor_decrease_num=factor_decrease_num,
+            cost_along_trajectory=cost_along_trajectory,
+            use_env_reward_as_cost=use_env_reward_as_cost,
+            cem_loop=cem_loop,
+            action_dim=env.action_space.dim,
+            action_low=tuple(np.asarray(env.action_space.low).ravel().tolist()),
+            action_high=tuple(np.asarray(env.action_space.high).ravel().tolist()),
+            **{k: asp[k] for k in _ICEM_SAMPLER_KEYS if k in asp},
+        )
+        self._seed = seed
+        self._pstate: Optional[ICemState] = None
+        self._model_state = None
+        self.was_reset = False
+        self.last_expected_cost = None
+
+    def _as_tensor(self, x):
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def beginning_of_rollout(self, *, observation, state=None, mode="train"):
+        from icem_torch.runtime.seeding import Seeding
+
+        if self._seed is not None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self._seed)
+        else:
+            gen = Seeding.next_generator("controller/icem", self.device)
+        obs_dim = int(np.shape(observation)[-1])
+        self._pstate = init_state(self.cfg, obs_dim, gen)
+        self._model_state = self.forward_model.got_actual_observation_and_env_state(
+            observation=self._as_tensor(observation),
+            env_state=None if state is None else self._as_tensor(state),
+            model_state=None)
+        self.was_reset = True
+
+    def get_action(self, obs, state=None, mode="train"):
+        if not self.was_reset:
+            raise AttributeError("beginning_of_rollout() needs to be called before")
+        obs = self._as_tensor(obs)
+        state = None if state is None else self._as_tensor(state)
+        self._model_state = self.forward_model.got_actual_observation_and_env_state(
+            observation=obs, env_state=state, model_state=self._model_state)
+        result = plan_step(self.cfg, self.forward_model.predict_fn, self.env.cost_fn,
+                           self._pstate, obs, self._model_state)
+        self._pstate = result.state
+        self.last_expected_cost = result.expected_cost
+        # (the JAX controller then advances a stateful model by the executed
+        # action; the ground-truth model is re-synced from reality instead)
+        return result.action.cpu().numpy()
+
+    # -- functional interface for device-side episode loops ------------------
+    def init_plan_state(self, obs_dim: int, generator: torch.Generator) -> ICemState:
+        return init_state(self.cfg, int(obs_dim), generator)
+
+    def functional_plan(self):
+        """(pstate, obs, env_state) -> (action, pstate')."""
+        cfg, predict_fn, cost_fn = self.cfg, self.forward_model.predict_fn, self.env.cost_fn
+        init_model_state = self.forward_model.init_model_state
+
+        def plan(pstate, obs, env_state):
+            res = plan_step(cfg, predict_fn, cost_fn, pstate, obs,
+                            init_model_state(obs, env_state))
+            return res.action, res.state
+
+        return plan

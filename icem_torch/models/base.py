@@ -1,0 +1,112 @@
+"""Forward-model abstraction: batched one-step predictors and open-loop rollouts.
+
+Counterpart of ``icem_tpu/models/base.py``. PyTorch has no ``vmap`` in this
+port: a predictor takes a leading population axis itself, and the rollout
+over the horizon is a Python loop, or one call where the predictor carries a
+whole-horizon ``.rollout`` (the planar envs: one kernel launch).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+
+class TrajectoryBatch(NamedTuple):
+    """A batch of simulated trajectories, time-major.
+
+    observations:      [h, p, obs_dim]  obs BEFORE each step
+    next_observations: [h, p, obs_dim]  obs AFTER each step
+    actions:           [h, p, act_dim]
+    rewards:           [h, p]
+    final_model_state: model state with a leading population axis
+    """
+
+    observations: torch.Tensor
+    next_observations: torch.Tensor
+    actions: torch.Tensor
+    rewards: torch.Tensor
+    final_model_state: Any
+
+
+def rollout_open_loop(predict_fn, model_state, obs, actions) -> TrajectoryBatch:
+    """Roll a population of open-loop action sequences through a model.
+
+    predict_fn: (model_state [p, ...], obs [p, obs_dim], action [p, act_dim])
+                -> (model_state, next_obs, reward), or one with a
+                whole-horizon ``.rollout(model_states, actions)``.
+    model_state: unbatched (broadcast to p) or with a leading p axis.
+    obs: [obs_dim] or [p, obs_dim] start observation(s).
+    actions: [p, h, act_dim] action sequences.
+    """
+    p, h = actions.shape[0], actions.shape[1]
+    # batching follows obs: an unbatched [obs_dim] start means the model
+    # state is unbatched too
+    if obs.ndim == 1:
+        obs = obs.expand((p,) + tuple(obs.shape))
+        model_state = model_state.expand((p,) + tuple(model_state.shape))
+
+    # whole-horizon fast path (planar GT envs)
+    whole = getattr(predict_fn, "rollout", None)
+    if whole is not None:
+        obs_seq, next_obs_seq, actions_tm, rewards, final_ms = whole(model_state, actions)
+        return TrajectoryBatch(
+            observations=obs_seq, next_observations=next_obs_seq,
+            actions=actions_tm, rewards=rewards, final_model_state=final_ms)
+
+    actions_tm = actions.transpose(0, 1)  # [h, p, d] time-major
+    obs_seq, next_obs_seq, rew_seq = [], [], []
+    ms, ob = model_state, obs
+    for t in range(h):
+        ms, ob2, rew = predict_fn(ms, ob, actions_tm[t])
+        obs_seq.append(ob)
+        next_obs_seq.append(ob2)
+        rew_seq.append(rew)
+        ob = ob2
+    return TrajectoryBatch(
+        observations=torch.stack(obs_seq),
+        next_observations=torch.stack(next_obs_seq),
+        actions=actions_tm,
+        rewards=torch.stack(rew_seq),
+        final_model_state=ms,
+    )
+
+
+def trajectory_cost(cost_fn, traj: TrajectoryBatch, mode: str = "sum",
+                    use_env_reward_as_cost: bool = False) -> torch.Tensor:
+    """Per-trajectory scalar cost. mode: 'sum' | 'best' (min over time) |
+    'final'. Returns [p]."""
+    if use_env_reward_as_cost:
+        costs_path = -traj.rewards  # [h, p]
+    else:
+        costs_path = cost_fn(traj.observations, traj.actions, traj.next_observations)
+    if mode == "sum":
+        return torch.sum(costs_path, dim=0)
+    if mode == "best":
+        return torch.amin(costs_path, dim=0)
+    if mode == "final":
+        return costs_path[-1]
+    raise NotImplementedError(f"unknown cost_along_trajectory mode {mode!r}")
+
+
+class ForwardModel:
+    """Forward-model interface: ``predict_fn`` (batched over a leading
+    population axis) and the sync of its state to reality."""
+
+    def __init__(self, *, env, **kwargs):
+        self.env = env
+
+    # -- functional core ---------------------------------------------------
+    def predict_fn(self, model_state, obs, action):
+        """(model_state, obs, action) -> (next_model_state, next_obs, reward)."""
+        raise NotImplementedError
+
+    def init_model_state(self, observation, env_state=None):
+        """Model state given a fresh observation (and env GT state if known)."""
+        raise NotImplementedError
+
+    def got_actual_observation_and_env_state(self, *, observation, env_state=None,
+                                             model_state=None):
+        """Sync the model to reality at the start of each planning step."""
+        return self.init_model_state(observation, env_state)

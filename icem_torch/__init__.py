@@ -5,7 +5,8 @@ paths and names follow the JAX package, so each function has a counterpart
 there with the same name. Plain tensor code is PyTorch; the population
 rollout of the planar physics engine is a CUDA C++ kernel written for
 Hopper (``csrc/``), with a plain PyTorch version beside it
-(``envs/physics/batched.py``).
+(``envs/physics/batched.py``); so is the population rollout of the spatial
+(3D) engine (plain version ``envs/physics/spatial_batched.py``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (see ``device.resolve_device``); randomness always comes

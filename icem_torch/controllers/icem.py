@@ -1,6 +1,9 @@
 """iCEM — improved Cross-Entropy Method planner.
 
-Counterpart of ``icem_tpu/controllers/icem.py`` (the unrolled CEM loop):
+Counterpart of ``icem_tpu/controllers/icem.py``, with both of its CEM loops
+(``cem_loop``): "unrolled" rolls out each iteration at its own decayed
+population; "scan" rolls out every iteration at one fixed population and
+masks the decayed rows instead (``_plan_step_scan``). Both have:
 
 - colored-noise (1/f^beta) action sampling
 - population decay: n_i = max(2*elites_size, int(n_{i-1} / gamma)), exact
@@ -63,11 +66,9 @@ class ICemConfig:
     def __post_init__(self):
         if self.num_simulated_trajectories < 2:
             raise ValueError("At least two trajectories needed!")
-        if self.cem_loop == "scan":
-            raise NotImplementedError(
-                "cem_loop='scan' is not ported to icem_torch yet; use 'unrolled'")
-        if self.cem_loop != "unrolled":
-            raise ValueError(f"cem_loop must be 'unrolled', got {self.cem_loop!r}")
+        if self.cem_loop not in ("unrolled", "scan"):
+            raise ValueError(f"cem_loop must be 'unrolled' or 'scan', "
+                             f"got {self.cem_loop!r}")
 
     @property
     def num_elites(self) -> int:
@@ -209,6 +210,8 @@ def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
     obs:        [obs_dim] current observation.
     model_state: forward-model state synced to reality.
     """
+    if cfg.cem_loop == "scan":
+        return _plan_step_scan(cfg, predict_fn, cost_fn, pstate, obs, model_state)
     mean, std = pstate.mean, pstate.std
     gen = pstate.generator
     have_elites = pstate.have_elites
@@ -284,6 +287,94 @@ def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
     )
 
 
+def _plan_step_scan(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState,
+                    obs, model_state) -> PlanResult:
+    """``plan_step`` with every CEM iteration at one population, n_0 fresh
+    rows plus E tail rows (``cfg.cem_loop == "scan"``).
+
+    The JAX package runs this loop as one ``lax.scan``; here it is a Python
+    loop with the same semantics:
+
+    - every iteration samples n_0 fresh rows; rows >= n_i are invalid
+      (ranked last, so they never become the executed best or an elite),
+    - the E tail rows hold the shifted elites at i = 0 (re-simulated) and
+      the kept elites at i > 0; kept elites are re-simulated too but keep
+      their stored costs and last observations,
+    - the tail is valid only once elites exist,
+    - the mean replaces fresh row 0 in the last iteration,
+    - the final iteration's best is executed.
+
+    Noise is drawn in the JAX order: n_0 fresh rows, then E rows for the
+    shift at every iteration (their last step is used at i = 0 only).
+    """
+    E = cfg.elites_kept
+    schedule = cfg.population_schedule
+    n0 = schedule[0]
+    last_iter = cfg.opt_iterations - 1
+    use_tail = E > 0 and (cfg.shift_elites_over_time or cfg.keep_previous_elites)
+
+    mean, std = pstate.mean, pstate.std
+    gen = pstate.generator
+    have = pstate.have_elites
+    e_a, e_c, e_o = pstate.elite_actions, pstate.elite_costs, pstate.elite_last_obs
+    device = mean.device
+    fresh_arange = torch.arange(n0, device=device)
+
+    for i, n_i in enumerate(schedule):
+        first = i == 0
+        fresh = sample_action_sequences(cfg, gen, mean, std, n0)
+        if cfg.use_mean_actions and i == last_iter:
+            fresh[0] = mean
+        fresh_valid = fresh_arange < n_i
+
+        if use_tail:
+            last_step = sample_action_sequences(cfg, gen, mean, std, E)[:, -1:, :]
+            if first:
+                tail_actions = torch.cat([e_a[:E, 1:, :], last_step], dim=1)
+            else:
+                tail_actions = e_a[:E]
+            sim_actions = torch.cat([fresh, tail_actions], dim=0)
+        else:
+            sim_actions = fresh
+
+        traj = rollout_open_loop(predict_fn, model_state, obs, sim_actions)
+        sim_costs = trajectory_cost(cost_fn, traj, cfg.cost_along_trajectory,
+                                    cfg.use_env_reward_as_cost)
+        sim_last_obs = traj.next_observations[-1]
+
+        if use_tail:
+            # cost reuse at i > 0: stored elite costs, not the re-simulated ones
+            tail_c = sim_costs[n0:] if first else e_c[:E]
+            tail_o = sim_last_obs[n0:] if first else e_o[:E]
+            cand_costs = torch.cat([sim_costs[:n0], tail_c])
+            cand_last_obs = torch.cat([sim_last_obs[:n0], tail_o])
+            tail_on = cfg.shift_elites_over_time if first else cfg.keep_previous_elites
+            tail_valid = torch.full((E,), bool(tail_on and have), device=device)
+            cand_valid = torch.cat([fresh_valid, tail_valid])
+        else:
+            cand_costs, cand_last_obs, cand_valid = sim_costs, sim_last_obs, fresh_valid
+        cand_actions = sim_actions
+
+        cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
+                                 cand_costs, float("inf"))
+        best_idx = torch.argmin(cand_costs)  # the first minimum
+        best_action_seq = cand_actions[best_idx]
+        best_cost = cand_costs[best_idx]
+        best_last_obs = cand_last_obs[best_idx]
+
+        mean, std, e_a, e_c, e_o = _refit(cfg, mean, std, cand_actions, cand_costs,
+                                          cand_last_obs)
+        have = True
+
+    executed = best_action_seq[0]
+    mean = torch.cat([mean[1:], mean[-1:]], dim=0)
+    std = init_std(cfg, device)
+    new_state = ICemState(mean=mean, std=std, elite_actions=e_a, elite_costs=e_c,
+                          elite_last_obs=e_o, have_elites=have, generator=gen)
+    return PlanResult(action=executed, state=new_state, expected_cost=best_cost,
+                      best_actions=best_action_seq, best_last_obs=best_last_obs)
+
+
 _ICEM_SAMPLER_KEYS = (
     "alpha", "elites_size", "opt_iterations", "init_std", "use_mean_actions",
     "keep_previous_elites", "shift_elites_over_time", "fraction_elites_reused",
@@ -312,8 +403,10 @@ class MpcICem:
         if do_visualize_plan:
             raise NotImplementedError("visualize_plan is not ported to icem_torch yet")
         if cem_loop == "auto":
-            # the planar envs, all this port has, run the unrolled loop
-            cem_loop = "unrolled"
+            # as in the JAX package: the spatial (3D) envs plan with the
+            # scanned loop, the planar envs with the unrolled one
+            from icem_torch.envs.spatial_base import SpatialEnv
+            cem_loop = "scan" if isinstance(env, SpatialEnv) else "unrolled"
         self.env = env
         self.forward_model = forward_model
         self.device = resolve_device(device)

@@ -17,16 +17,16 @@ import torch
 
 from icem_torch.controllers.icem import ICemState
 from icem_torch.envs.physics.planar import PlanarModel
+from icem_torch.envs.physics.spatial import SpatialModel
 
 _INT_TUPLES = ("parent", "geom_body", "actuator_dof")
 
 
-def planar_model_from_arrays(fields: dict) -> PlanarModel:
-    """A ``PlanarModel`` from its fields; unknown fields raise."""
-    known = {f.name: f for f in dataclasses.fields(PlanarModel)}
+def _model_from_arrays(cls, fields: dict):
+    known = {f.name: f for f in dataclasses.fields(cls)}
     unknown = set(fields) - set(known)
     if unknown:
-        raise ValueError(f"unknown PlanarModel fields {sorted(unknown)}")
+        raise ValueError(f"unknown {cls.__name__} fields {sorted(unknown)}")
     out = {}
     for name, value in fields.items():
         default = known[name].default
@@ -36,11 +36,23 @@ def planar_model_from_arrays(fields: dict) -> PlanarModel:
             out[name] = bool(value)
         elif isinstance(default, int):
             out[name] = int(value)
-        elif isinstance(default, float):
+        elif isinstance(default, float) and np.ndim(value) == 0:
+            # a float field may also hold a per-dof array (SpatialModel.max_qd)
             out[name] = float(value)
         else:
             out[name] = np.asarray(value, np.float32)
-    return PlanarModel(**out)
+    return cls(**out)
+
+
+def planar_model_from_arrays(fields: dict) -> PlanarModel:
+    """A ``PlanarModel`` from its fields; unknown fields raise."""
+    return _model_from_arrays(PlanarModel, fields)
+
+
+def spatial_model_from_arrays(fields: dict) -> SpatialModel:
+    """A ``SpatialModel`` from its fields; unknown fields raise. A scalar
+    ``max_qd`` stays a float, a per-dof one an array."""
+    return _model_from_arrays(SpatialModel, fields)
 
 
 def icem_state_from_arrays(fields: dict, device, generator: torch.Generator) -> ICemState:

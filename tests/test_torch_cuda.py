@@ -1,4 +1,4 @@
-"""The rollout kernel's launch path on a CUDA card.
+"""The rollout kernels' launch paths on a CUDA card.
 
 These tests need the card and skip without one. On a machine with an H100
 and the CUDA toolkit:
@@ -10,9 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from icem_torch.envs.ant3d import Ant3D
 from icem_torch.envs.cheetah import HalfCheetah, make_cheetah_model
+from icem_torch.envs.humanoid3d import HumanoidStandup3D
 from icem_torch.envs.physics.planar import PlanarModel
+from icem_torch.envs.physics.spatial import SpatialModel
 from icem_torch.ops import planar_rollout as pr
+from icem_torch.ops import spatial_rollout as sr
 
 pytestmark = pytest.mark.cuda
 
@@ -69,3 +73,63 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="not instantiated"):
         pr.rollout_planar(arm, torch.zeros(8, 2, device=cuda), torch.zeros(8, 2, device=cuda),
                           torch.zeros(8, 2, 2, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the spatial rollout kernel (B2)
+
+SPATIAL = {"ant3d": Ant3D, "humanoid3d": HumanoidStandup3D}
+
+
+def _spatial_inputs(env, P, h, device, seed=0):
+    """States near the env's start distribution and uniform actions."""
+    model = env.model
+    n, na = model.ndof, len(model.actuator_dof)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    S = torch.stack([env.init_state(gen) for _ in range(8)])[torch.arange(P) % 8]
+    Q = S[:, :n] + 0.05 * torch.randn(P, n, generator=gen, device=device)
+    QD = S[:, n:] + 0.1 * torch.randn(P, n, generator=gen, device=device)
+    A = torch.rand(P, h, na, generator=gen, device=device) * 2 - 1
+    return Q, QD, A
+
+
+@pytest.mark.parametrize("name", list(SPATIAL))
+@pytest.mark.parametrize("P", [1, 127, 1000])
+def test_spatial_kernel_matches_plain_version(cuda, name, P):
+    env = SPATIAL[name]()
+    Q, QD, A = _spatial_inputs(env, P, 3, cuda)
+    before = sr.LAUNCHES
+    qs, qds = sr.rollout_spatial(env.model, Q, QD, A)
+    torch.cuda.synchronize()
+    assert sr.LAUNCHES == before + 1
+    rq, _ = sr.rollout_spatial_reference(env.model, Q, QD, A)
+    assert bool(torch.isfinite(qs).all() and torch.isfinite(qds).all())
+    # tests/test_pallas_rollout.py's spatial bulk rule over three steps
+    d = (qs - rq).abs()
+    assert float(torch.quantile(d.flatten(), 0.999)) < 1e-3 and float(d.max()) < 5e-2
+
+
+def test_spatial_env_step_is_one_launch(cuda):
+    env = Ant3D(exclude_current_positions_from_observation=False)
+    state = env.init_state(torch.Generator(device=cuda).manual_seed(0))
+    before = sr.LAUNCHES
+    new_state, obs, reward, done = env.step(state, torch.zeros(8, device=cuda))
+    assert sr.LAUNCHES == before + 1
+    assert new_state.device.type == "cuda" and tuple(obs.shape) == (28,)
+
+
+def test_spatial_kernel_raises_on_what_it_does_not_take(cuda):
+    model = Ant3D().model
+    Q, QD, A = _spatial_inputs(Ant3D(), 8, 2, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        sr.rollout_spatial(model, Q.double(), QD.double(), A)
+    with pytest.raises(ValueError, match="on cpu"):
+        sr.rollout_spatial(model, Q, QD.cpu(), A)
+    chain = SpatialModel(parent=(-1, 0), anchor=np.zeros((2, 3), np.float32),
+                         axis=np.eye(3, dtype=np.float32)[:2],
+                         com=np.zeros((2, 3), np.float32), mass=np.ones(2, np.float32),
+                         inertia=np.ones((2, 3), np.float32), free_root=False,
+                         actuator_dof=(0, 1), gear=np.ones(2, np.float32))
+    with pytest.raises(ValueError, match="not instantiated"):
+        sr.rollout_spatial(chain, torch.zeros(8, 2, device=cuda),
+                           torch.zeros(8, 2, device=cuda), torch.zeros(8, 2, 2, device=cuda))

@@ -181,8 +181,11 @@ def test_mpc_icem_get_action_on_cpu():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="scan"):
-        tic.ICemConfig(cem_loop="scan")
+    # the scanned loop is ported (tests/test_torch_icem_scan.py); an unknown
+    # loop is refused
+    assert tic.ICemConfig(cem_loop="scan").cem_loop == "scan"
+    with pytest.raises(ValueError, match="cem_loop"):
+        tic.ICemConfig(cem_loop="while")
     env = HalfCheetah(**KW)
     model = GroundTruthModel(env=env)
     with pytest.raises(NotImplementedError, match="sharded"):

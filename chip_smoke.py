@@ -10,19 +10,22 @@ CUDA toolkit:
 It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
 
 1. prints the card's name and power limit, the build time and nvcc's register,
-   stack and spill report, and for each shape of the spatial kernel its
-   shared memory per block and the warps an SM holds at once;
+   stack and spill report, and for each kernel and shape its shared memory
+   per block and the warps an SM holds at once;
 2. runs the planar rollout kernel against ``rollout_planar_reference`` on the
    card at every shape the HalfCheetah path launches (P = 32,921, 26,214 and
-   20,971 at h = 30, and the real env step's P = 1, h = 1);
+   20,971 at h = 30, and the real env step's P = 1, h = 1), on Q and QD
+   passed as the env passes them, column slices of its state;
 3. checks the colored-noise synthesis on the card against a float64 numpy
    synthesis of the same white draws, and the variance of a full-width draw;
 4. drives the HalfCheetah path: 20 iCEM plan steps at population 32,768 and
    horizon 30 (the unrolled CEM loop), each followed by one real env step,
    counting the kernel's launches, then a few steps of ``MpcICem.get_action``
    at the settings file's own population;
-5. times the planar kernel, its plain version and the plan step, and
-   computes the kernel's bound from the operations and bytes of this run;
+5. times the planar kernel at every shape of step 2, its plain version and
+   the plan step, and computes the kernel's bound from the operations and
+   bytes of this run; then builds the kernels' profile variant and prints
+   the cycles one trajectory's group of lanes spends in each phase group;
 6. runs the spatial rollout kernel against ``rollout_spatial_reference`` at
    every shape the spatial path launches: Ant3D and HumanoidStandup3D at
    P = 4,115 (4,096 fresh rows + 19 elites, every iteration of the scanned
@@ -35,8 +38,8 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
    parameters, then 5 plan steps on HumanoidStandup3D;
 8. times the spatial kernel at both h = 30 shapes with its plain version and
    its bound, and the Ant3D plan step;
-9. builds the spatial kernel's profile variant and prints the cycles one
-   warp spends in each phase group of a control step at both shapes.
+9. prints, from the same profile build, the cycles one warp of the spatial
+   kernel spends in each phase group of a control step at both shapes.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result. It also fails where there is no CUDA device: nothing runs on the CPU.
@@ -209,14 +212,17 @@ def main_path_shapes(cfg):
 
 
 def _seeded_rollout_inputs(model, P: int, h: int, device, seed: int):
-    """States near HalfCheetah's init distribution and uniform actions."""
+    """States near HalfCheetah's init distribution, as the env passes them:
+    Q and QD are column slices of one [P, 2 nd] state tensor, rows at the
+    state's stride. Uniform actions."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     nd, na = model.ndof, len(model.actuator_dof)
     Q = torch.rand((P, nd), generator=gen, device=device) * 0.2 - 0.1
     QD = 0.1 * torch.randn((P, nd), generator=gen, device=device)
     A = torch.rand((P, h, na), generator=gen, device=device) * 2.0 - 1.0
-    return Q, QD, A
+    S = torch.cat([Q, QD], dim=1)
+    return S[:, :nd], S[:, nd:], A
 
 
 QUANTILES = [0.5, 0.9, 0.99, 0.999, 1.0]
@@ -272,6 +278,15 @@ def phase_kernel_vs_plain(device, shapes):
     for k, (P, h) in enumerate(shapes):
         Q, QD, A = _seeded_rollout_inputs(model, P, h, device, SEED + k)
         qs, qds = rollout_planar(model, Q, QD, A)
+        # the rows at the state's stride, as the env passes them, against
+        # contiguous copies: the same reads, so the same bits
+        qs_c, qds_c = rollout_planar(model, Q.contiguous(), QD.contiguous(), A)
+        check(Q.stride(0) > model.ndof and QD.stride(0) > model.ndof,
+              "the compared inputs are not strided rows")
+        check(torch.equal(qs, qs_c) and torch.equal(qds, qds_c),
+              f"the kernel reads strided rows differently from contiguous ones, P={P}")
+        log(f"[kernel] HalfCheetah P={P} h={h}: rows at stride {Q.stride(0)} give the same "
+            f"bits as contiguous rows")
         Q_ulp = torch.nextafter(Q, torch.full_like(Q, float("inf")))
         qs_ulp, _ = rollout_planar(model, Q_ulp, QD, A)
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -292,9 +307,11 @@ def phase_kernel_vs_plain(device, shapes):
         first = min(h, 3)
         per_traj = dq[:first].amax(dim=(0, 2))                       # [P]
         diverged = torch.nonzero(per_traj >= 1e-4).flatten()
+        same = int(((qs == rq).all(dim=2).all(dim=0) & (qds == rqd).all(dim=2).all(dim=0)).sum())
         log(f"[kernel] HalfCheetah P={P} h={h}: max |dq| over the first {first} control "
             f"steps = {float(per_traj.max()):.3e}; {len(diverged)} of {P} trajectories "
-            f"at 1e-4 or more")
+            f"at 1e-4 or more; {same} of {P} bit-identical to the plain version over all "
+            f"{h} steps")
         checked = per_traj.masked_fill(per_traj >= 1e-4, 0.0).max()
         if len(diverged):
             local = _replay_one_step(model, Q, QD, A, qs, qds, diverged, first)
@@ -503,29 +520,93 @@ def phase_main_path(device, cfg, plan_steps: int):
 
 
 def phase_times(device, shapes, plain_ms: float):
+    """ms per launch of the planar kernel at every shape of a plan step and
+    its env step, on strided rows as the env passes them; the bound and the
+    plain version at the first (largest) shape."""
     from icem_torch.envs.cheetah import HalfCheetah
     from icem_torch.ops.planar_rollout import rollout_planar
 
     model = HalfCheetah().model
+    per_shape = []
+    for P, h in shapes:
+        Q, QD, A = _seeded_rollout_inputs(model, P, h, device, SEED)
+        reps = 20 if h > 1 else 50
+        ms = cuda_ms(lambda: rollout_planar(model, Q, QD, A), reps=reps, warmup=2)
+        per_shape.append(ms)
+        log(f"[times] rollout kernel, HalfCheetah P={P} h={h}: {ms:.4f} ms per launch, "
+            f"CUDA events over {reps} launches")
+    planner = sum(per_shape[:-1])
+    log(f"[times] the plan step's {len(shapes) - 1} planner launches: {planner:.4f} ms in all; "
+        f"with the env step's launch {planner + per_shape[-1]:.4f} ms")
     P, h = shapes[0]
-    Q, QD, A = _seeded_rollout_inputs(model, P, h, device, SEED)
-    kernel_ms = cuda_ms(lambda: rollout_planar(model, Q, QD, A), reps=20, warmup=2)
-    # the real env step: one trajectory, one control step
-    step_ms = cuda_ms(lambda: rollout_planar(model, Q[:1], QD[:1], A[:1, :1]), reps=20)
+    kernel_ms = per_shape[0]
     ops = plain_ops_per_trajectory_step(model, device)
     bound_ms, bound_by = rollout_bound_ms(ops, P, h, model.ndof, len(model.actuator_dof))
-    log(f"[times] rollout kernel, HalfCheetah P={P} h={h}: {kernel_ms:.4f} ms per launch, "
-        f"CUDA events over 20 launches")
-    log(f"[times] plain version at the same shape and inputs: {plain_ms:.1f} ms (one call, "
-        f"in the comparison above)")
-    log(f"[times] the real env step's launch (P=1, h=1): {step_ms:.4f} ms")
+    log(f"[times] plain version at P={P} h={h} and the same inputs: {plain_ms:.1f} ms "
+        f"(one call, in the comparison above)")
     log(f"[times] plain version's operations: {ops:.1f} per trajectory-step, "
         f"{ops * P * h / 1e9:.3f} G per launch; bound {bound_ms:.4f} ms ({bound_by}: "
         f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s FP32, {PEAK_HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
         f"kernel at {bound_ms / kernel_ms * 100:.1f}% of its bound")
     log("[times] library_ms: none; no single PyTorch call computes a planar rollout")
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                ops=ops, P=P)
+                ops=ops, P=P, planner_ms=planner)
+
+
+def phase_planar_build_report(info, model):
+    """The planar kernel's resources at HalfCheetah's shape: ptxas's
+    registers, stack and spills, the lanes per trajectory, the dynamic
+    shared memory per block (its groups' workspaces) and the warps an SM
+    holds at once."""
+    from icem_torch.ops._build import load_library
+    from icem_torch.ops.planar_rollout import occupancy
+
+    rep = occupancy(load_library()[0], info.ptxas_log, model)
+    check(rep["warps_per_sm"] > 0, f"the planar kernel fits no block on an SM: {rep}")
+    log(f"[build] planar kernel HalfCheetah <{rep['shape']}>: {rep['registers']} registers, "
+        f"{rep['stack']} bytes stack, {rep['spill_stores']} bytes spill stores, "
+        f"{rep['spill_loads']} bytes spill loads; {rep['lanes']} lanes per trajectory; "
+        f"{rep['smem_per_block']} bytes of shared memory per block of 4 warps; "
+        f"{rep['warps_per_sm']} resident warps per SM")
+
+
+# csrc/planar_step.cuh::PlanarProfGroup, in order
+PLANAR_PROFILE_GROUPS = ("io", "step_fk", "mass_rows", "cholesky", "sub_fk", "contact", "rhs",
+                         "solve")
+# one build of the kernels with the marks of both
+PROFILE_DEFINES = ("-DICEM_SPATIAL_PROFILE", "-DICEM_PLANAR_PROFILE")
+
+
+def phase_planar_profile(device, shapes):
+    """Where a group's cycles go inside the planar kernel: the profile build
+    (the port's kernel plus marks at which lane 0 of each group charges the
+    clock64() cycles since the last mark to the phase group that just
+    ended), launched at the plan step's first shape; trajectory 0's group
+    over the last launch. These launches count nothing."""
+    from icem_torch.envs.cheetah import HalfCheetah
+    from icem_torch.ops import _build
+    from icem_torch.ops import planar_rollout as pr
+
+    info = _build.build(PROFILE_DEFINES)
+    lib = ctypes.CDLL(str(info.path))
+    read = lib.planar_profile_read
+    read.restype, read.argtypes = ctypes.c_int, [ctypes.c_void_p]
+    model = HalfCheetah().model
+    P, h = shapes[0]
+    Q, QD, A = _seeded_rollout_inputs(model, P, h, device, SEED)
+    kernel = pr.bind(lib, model)
+    ms = cuda_ms(lambda: pr.launch_bound(kernel, Q, QD, A), reps=3)
+    rep = pr.occupancy(lib, info.ptxas_log, model)
+    cycles = (ctypes.c_longlong * len(PLANAR_PROFILE_GROUPS))()
+    check(read(cycles) == len(PLANAR_PROFILE_GROUPS), "planar_profile_read failed")
+    total = sum(cycles)
+    check(total > 0 and min(cycles) >= 0, f"bad planar profile {list(cycles)}")
+    per_substep = total / (h * model.n_substeps)
+    log(f"[profile] planar kernel HalfCheetah, profile build ({rep['registers']} registers, "
+        f"{rep['warps_per_sm']} warps per SM): {ms:.4f} ms per launch at P={P} h={h}; "
+        f"trajectory 0's group, {total} cycles over {h} steps ({per_substep:.0f} per "
+        f"substep): " + ", ".join(f"{g} {100.0 * c / total:.2f} %" for g, c in
+                                   sorted(zip(PLANAR_PROFILE_GROUPS, cycles), key=lambda x: -x[1])))
 
 
 # ---------------------------------------------------------------------------
@@ -842,7 +923,7 @@ def phase_spatial_profile(device, envs):
     from icem_torch.ops import _build
     from icem_torch.ops import spatial_rollout as sr
 
-    info = _build.build(("-DICEM_SPATIAL_PROFILE",))
+    info = _build.build(PROFILE_DEFINES)
     lib = ctypes.CDLL(str(info.path))
     read = lib.spatial_profile_read
     read.restype, read.argtypes = ctypes.c_int, [ctypes.c_void_p]
@@ -877,17 +958,20 @@ def main() -> int:
     info = phase_build()
 
     from icem_torch.envs.ant3d import Ant3D
+    from icem_torch.envs.cheetah import HalfCheetah
     from icem_torch.envs.humanoid3d import HumanoidStandup3D
 
     ant = Ant3D(exclude_current_positions_from_observation=False)
     humanoid = HumanoidStandup3D()
     phase_spatial_build_report(info, {ant.name: ant.model, humanoid.name: humanoid.model})
+    phase_planar_build_report(info, HalfCheetah().model)
     cfg = main_path_config()
     shapes = main_path_shapes(cfg)
     err, plain_ms = phase_kernel_vs_plain(device, shapes)
     phase_colored_noise(device)
     path = phase_main_path(device, cfg, plan_steps=20)
     times = phase_times(device, shapes, plain_ms)
+    phase_planar_profile(device, shapes)
 
     scfg = spatial_path_config(ant.action_dim)
     P = scfg.num_simulated_trajectories + scfg.elites_kept

@@ -1,8 +1,8 @@
 // Test-only host build of the rollout kernel's body (planar_step.cuh): the
-// same per-trajectory code, looped over trajectories on the CPU, so that the
-// kernel's arithmetic can be held against the plain PyTorch version where
-// there is no GPU. Build: g++ -O2 -shared -fPIC -std=c++17. Never on the
-// main path.
+// same phase functions over one workspace per trajectory, each phase run for
+// the group's lanes 0..G-1 in turn (or G-1..0), so that the kernel's
+// arithmetic can be held against the plain PyTorch version where there is no
+// GPU. Build: g++ -O2 -shared -fPIC -std=c++17. Never on the main path.
 
 #include <cstring>
 
@@ -11,25 +11,36 @@
 namespace {
 
 template <int NDOF, int NBODY, int NGEOM, int NACT>
-int run(const void* params, const float* q0, const float* qd0, const float* acts,
-        float* qs, float* qds, long long P, int h) {
+int run(const void* params, const float* q0, long long ldq, const float* qd0, long long ldqd,
+        const float* acts, float* qs, float* qds, long long P, int h, int descending) {
   icem::PlanarParams<NDOF, NBODY, NGEOM, NACT> m;
   std::memcpy(&m, params, sizeof(m));
-  for (long long p = 0; p < P; ++p)
-    icem::rollout_one<NDOF, NBODY, NGEOM, NACT>(m, q0, qd0, acts, qs, qds, P, h, p);
+  typename icem::Planar<NDOF, NBODY, NGEOM, NACT>::Work W;
+  const icem::HostLanes<icem::kPlanarLanes> lanes{descending != 0};
+  for (long long p = 0; p < P; ++p) {
+    // every float a NaN, so that a slot read before it is written shows
+    std::memset(static_cast<void*>(&W), 0xff, sizeof(W));
+    icem::planar_rollout_one<NDOF, NBODY, NGEOM, NACT>(m, W, lanes, q0, ldq, qd0, ldqd, acts,
+                                                       qs, qds, P, h, p, true);
+  }
   return 0;
 }
 
 }  // namespace
 
+// q0, qd0 [P, NDOF] with row strides ldq, ldqd (as the kernel takes them);
+// acts [P, h, NACT]; qs, qds [h, P, NDOF]. descending != 0 runs each phase's
+// lanes from G-1 down to 0.
 #define ICEM_PLANAR_HOST_INSTANTIATE(ND, NB, NG, NA)                                 \
   extern "C" int planar_params_bytes_##ND##_##NB##_##NG##_##NA() {                   \
     return (int)sizeof(icem::PlanarParams<ND, NB, NG, NA>);                          \
   }                                                                                  \
   extern "C" int planar_rollout_host_##ND##_##NB##_##NG##_##NA(                      \
-      const void* params, const float* q0, const float* qd0, const float* acts,      \
-      float* qs, float* qds, long long P, int h) {                                   \
-    return run<ND, NB, NG, NA>(params, q0, qd0, acts, qs, qds, P, h);                \
+      const void* params, const float* q0, long long ldq, const float* qd0,          \
+      long long ldqd, const float* acts, float* qs, float* qds, long long P, int h,  \
+      int descending) {                                                              \
+    return run<ND, NB, NG, NA>(params, q0, ldq, qd0, ldqd, acts, qs, qds, P, h,      \
+                               descending);                                          \
   }
 
 ICEM_PLANAR_HOST_INSTANTIATE(9, 7, 6, 6)  // HalfCheetah (the device's shape)

@@ -17,7 +17,7 @@ int run(const void* params, const float* q0, long long ldq, const float* qd0, lo
   icem::SpatialParams<NDOF, NBODY, NGEOM, NACT> m;
   std::memcpy(&m, params, sizeof(m));
   typename icem::Spatial<NDOF, NBODY, NGEOM, NACT>::Work W;
-  const icem::HostLanes lanes{descending != 0};
+  const icem::HostLanes<icem::kSpatialLanes> lanes{descending != 0};
   for (long long p = 0; p < P; ++p) {
     // every float a NaN, so that a slot read before it is written shows
     std::memset(&W, 0xff, sizeof(W));

@@ -44,6 +44,8 @@
 
 #include <math.h>
 
+#include "lanes.cuh"
+
 #ifdef __CUDACC__
 #define SPATIAL_HD __host__ __device__ __forceinline__
 // constexpr functions are host-only under nvcc unless marked for the device
@@ -60,16 +62,6 @@ namespace icem {
 SPATIAL_CE int spatial_at_least_one(int n) { return n > 0 ? n : 1; }
 
 constexpr int kSpatialLanes = 32;
-
-// the index of the lowest set bit of x != 0: loops over a chain's dofs take
-// its set bits in ascending order
-SPATIAL_HD int lowest_bit(unsigned x) {
-#ifdef __CUDA_ARCH__
-  return __ffs(x) - 1;
-#else
-  return __builtin_ctz(x);
-#endif
-}
 
 // Phase groups of a control step, for the profile build (-DICEM_SPATIAL_PROFILE):
 // lane 0 of the warp charges the clock64() cycles since the last mark to
@@ -88,67 +80,6 @@ enum SpatialProfGroup {
   kProfBackward,    // L^T x = y
   kProfEuler,       // the clip, the Euler step and the work sum
   kSpatialProfGroups
-};
-
-// The two ways to run a phase, a function of the lane index. A phase writes
-// only its own lane's slots of the workspace and reads only slots written in
-// earlier phases, so the lanes of one phase may run in any order, or at once.
-//
-// On the device each thread is one lane of the trajectory's warp: it runs
-// the phase for itself, then the warp meets at __syncwarp().
-struct WarpLanes {
-  int lane;
-  template <class Phase>
-  SPATIAL_HD void operator()(const Phase& phase) const {
-    phase(lane);
-#ifdef __CUDA_ARCH__
-    __syncwarp();
-#endif
-  }
-  // n phases, phase(lane, s, carry) for s = 0..n-1; each lane's carry (a
-  // Carry, in registers) goes from one phase to the next
-  template <class Carry, class Phase>
-  SPATIAL_HD void sweep(int n, const Phase& phase) const {
-    Carry carry{};
-    for (int s = 0; s < n; ++s) {
-      phase(lane, s, carry);
-#ifdef __CUDA_ARCH__
-      __syncwarp();
-#endif
-    }
-  }
-  template <class Work>
-  SPATIAL_HD void mark(Work& W, int group) const {
-#if defined(ICEM_SPATIAL_PROFILE) && defined(__CUDA_ARCH__)
-    if (lane == 0) {
-      const long long t = clock64();
-      W.prof[group] += t - W.prof_t;
-      W.prof_t = t;
-    }
-#else
-    (void)W;
-    (void)group;
-#endif
-  }
-};
-
-// On the host one thread runs the phase for lanes 0..31 in turn, or in the
-// opposite order. Where no phase reads a slot that another lane writes in
-// the same phase, the two orders give bit-identical results.
-struct HostLanes {
-  bool descending;
-  template <class Phase>
-  SPATIAL_HD void operator()(const Phase& phase) const {
-    for (int i = 0; i < kSpatialLanes; ++i) phase(descending ? kSpatialLanes - 1 - i : i);
-  }
-  template <class Carry, class Phase>
-  SPATIAL_HD void sweep(int n, const Phase& phase) const {
-    Carry carry[kSpatialLanes]{};
-    for (int s = 0; s < n; ++s)
-      (*this)([&](int l) { phase(l, s, carry[l]); });
-  }
-  template <class Work>
-  SPATIAL_HD void mark(Work&, int) const {}
 };
 
 // Every field is 4 bytes wide, so the struct has no padding and its layout
@@ -244,6 +175,11 @@ struct Spatial {
   // access (ld3, st3, ld9, st9). Two unions share space between arrays
   // whose lifetimes do not overlap.
   struct alignas(16) Work {
+#ifdef ICEM_SPATIAL_PROFILE
+    static constexpr bool kProfile = true;
+#else
+    static constexpr bool kProfile = false;
+#endif
     // world frames of one configuration (spatial_batched.fk_rows)
     float R[NBODY][12];     // rotations, row-major
     float o[NBODY][4];      // joint origins

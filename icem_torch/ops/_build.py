@@ -127,6 +127,22 @@ def ptxas_report(log: str, key: str) -> dict:
     return found[0]
 
 
+def occupancy(lib, ptxas_log: str, kernel: str, shape) -> dict:
+    """The resources of ``<kernel>_rollout_kernel`` at ``shape`` in a build
+    (``lib``, a ctypes.CDLL, and its ptxas log): registers, stack and spill
+    bytes, and, from the library's ``<kernel>_smem_bytes_<shape>`` and
+    ``<kernel>_warps_per_sm_<shape>``, the dynamic shared memory per block
+    and the warps an SM holds at once."""
+    tag = "_".join(map(str, shape))
+    smem_fn = getattr(lib, f"{kernel}_smem_bytes_{tag}")
+    warps_fn = getattr(lib, f"{kernel}_warps_per_sm_{tag}")
+    smem_fn.restype = warps_fn.restype = ctypes.c_int
+    smem_fn.argtypes = warps_fn.argtypes = []
+    entry = f"{kernel}_rollout_kernelILi" + "ELi".join(map(str, shape)) + "E"
+    return dict(ptxas_report(ptxas_log, entry), shape=", ".join(map(str, shape)),
+                smem_per_block=smem_fn(), warps_per_sm=warps_fn())
+
+
 def load_library():
     """The kernels' library, built on first use and loaded once per process.
     Returns (ctypes.CDLL, BuildInfo)."""

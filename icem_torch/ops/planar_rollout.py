@@ -2,10 +2,10 @@
 
 ``rollout_planar`` runs h control steps of ``n_substeps`` each for every
 trajectory of a population. On a CUDA tensor it launches the hand-written
-kernel of ``csrc/planar_rollout.cu`` (one thread per trajectory, the state in
-registers); on a CPU tensor it runs ``rollout_planar_reference``, the row
-engine of ``envs/physics/batched.py`` looped over the horizon. There is no
-fallback from one to the other.
+kernel of ``csrc/planar_rollout.cu`` (a group of lanes per trajectory over a
+shared-memory workspace); on a CPU tensor it runs
+``rollout_planar_reference``, the row engine of ``envs/physics/batched.py``
+looped over the horizon. There is no fallback from one to the other.
 
 Counterpart of ``icem_tpu/ops/planar_rollout.py::rollout_planar_pallas``,
 with the same contract: Q, QD [P, ndof] and already-clipped ACTS
@@ -54,7 +54,7 @@ def _param_dtype(nd: int, nb: int, ng: int, na: int) -> np.dtype:
         ("limit_stiffness", f32), ("limit_damping", f32), ("gravity", f32),
         ("contact_kp", f32), ("contact_kd", f32), ("contact_fmax", f32),
         ("friction_mu", f32), ("friction_kt", f32), ("max_qd", f32),
-        ("motor_omega_max", f32), ("dt_sub", f32),
+        ("motor_omega_max", f32), ("dt_sub", f32), ("root_mass", f32),
     ])
 
 
@@ -94,6 +94,9 @@ def pack_params(model: PlanarModel) -> np.ndarray:
                  "max_qd", "motor_omega_max"):
         rec[name] = float(getattr(model, name))
     rec["dt_sub"] = model.dt / model.n_substeps
+    # the plain version sums a free root's translational mass in float64 and
+    # rounds it once, where it meets a tensor
+    rec["root_mass"] = sum(batched._floats(model.mass)) + 1e-6
     return np.array(rec)
 
 
@@ -125,7 +128,7 @@ def rollout_planar_reference(model: PlanarModel, Q, QD, ACTS):
     return torch.stack(qs), torch.stack(qds)
 
 
-# id(model) -> (model, C launcher, packed parameter block). The entry holds
+# id(model) -> (model, (C launcher, packed parameter block)). The entry holds
 # the model, so its id cannot be reused by another model while it lives.
 _LAUNCHERS: dict = {}
 
@@ -135,11 +138,19 @@ def _launcher(model: PlanarModel):
     per model, so that a launch only makes the ctypes call."""
     hit = _LAUNCHERS.get(id(model))
     if hit is not None and hit[0] is model:
-        return hit[1], hit[2]
+        return hit[1]
     from icem_torch.ops._build import load_library
 
+    kernel = bind(load_library()[0], model)
+    _LAUNCHERS[id(model)] = (model, kernel)
+    return kernel
+
+
+def bind(lib, model: PlanarModel):
+    """(fn, params): the C launcher of the model's shape in ``lib`` (a
+    ctypes.CDLL of ``csrc/planar_rollout.cu``) and the model's packed
+    parameter block."""
     shape = "_".join(map(str, kernel_shape(model)))
-    lib, _ = load_library()
     try:
         fn = getattr(lib, f"planar_rollout_{shape}")
         nbytes = getattr(lib, f"planar_params_bytes_{shape}")
@@ -149,39 +160,56 @@ def _launcher(model: PlanarModel):
             f"<NDOF, NBODY, NGEOM, NACT> = <{shape.replace('_', ', ')}>; add it "
             f"to csrc/planar_rollout.cu") from None
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
+    ptr, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = [ptr, ptr, ll, ptr, ll, ptr, ptr, ptr, ll, ctypes.c_int, ptr]
     nbytes.restype = ctypes.c_int
     params = pack_params(model)
     if params.nbytes != nbytes():
         raise RuntimeError(f"parameter block is {params.nbytes} bytes, the kernel "
                            f"expects {nbytes()}")
-    _LAUNCHERS[id(model)] = (model, fn, params)
     return fn, params
+
+
+def occupancy(lib, ptxas_log: str, model: PlanarModel) -> dict:
+    """The kernel's resources at the model's shape, from a build of
+    ``csrc/planar_rollout.cu`` (``lib``, a ctypes.CDLL, and its ptxas log):
+    registers, stack and spill bytes, the lanes per trajectory, dynamic
+    shared memory per block and the warps an SM holds at once."""
+    from icem_torch.ops import _build
+
+    lanes = lib.planar_lanes_per_trajectory
+    lanes.restype, lanes.argtypes = ctypes.c_int, []
+    return dict(_build.occupancy(lib, ptxas_log, "planar", kernel_shape(model)), lanes=lanes())
+
+
+def launch_bound(kernel, Q, QD, ACTS):
+    """One launch of a kernel from ``bind`` on checked CUDA inputs; counts
+    nothing. Returns (qs, qds) [h, P, nd]."""
+    P, h = ACTS.shape[0], ACTS.shape[1]
+    if P == 0 or h == 0:
+        raise ValueError(f"empty rollout: P={P}, h={h}")
+    # the kernel reads Q and QD where they are, rows at any stride (the env
+    # passes column slices of its state), and writes [h, P, nd] directly
+    q0, qd0 = (x if x.stride(1) == 1 else x.contiguous() for x in (Q, QD))
+    acts = ACTS.contiguous()
+    qs = torch.empty((h, P, Q.shape[1]), dtype=torch.float32, device=Q.device)
+    qds = torch.empty_like(qs)
+    fn, params = kernel
+    with torch.cuda.device(Q.device):
+        stream = torch.cuda.current_stream(Q.device).cuda_stream
+        # the block goes by value, into the kernel's constant bank
+        err = fn(params.ctypes.data, q0.data_ptr(), q0.stride(0), qd0.data_ptr(), qd0.stride(0),
+                 acts.data_ptr(), qs.data_ptr(), qds.data_ptr(), P, h, stream)
+    if err != 0:
+        raise RuntimeError(f"rollout kernel launch failed: cudaError_t {err}")
+    return qs, qds
 
 
 def _launch(model: PlanarModel, Q, QD, ACTS):
     global LAUNCHES
-    P, h = ACTS.shape[0], ACTS.shape[1]
-    if P == 0 or h == 0:
-        raise ValueError(f"empty rollout: P={P}, h={h}")
-    fn, params = _launcher(model)
-
-    nd = model.ndof
-    # trajectory-minor layouts: neighbouring threads touch neighbouring floats
-    q0 = Q.t().contiguous()                      # [nd, P]
-    qd0 = QD.t().contiguous()                    # [nd, P]
-    acts = ACTS.permute(1, 2, 0).contiguous()    # [h, na, P]
-    qs = torch.empty((h, nd, P), dtype=torch.float32, device=Q.device)
-    qds = torch.empty_like(qs)
-    with torch.cuda.device(Q.device):
-        stream = torch.cuda.current_stream(Q.device).cuda_stream
-        err = fn(params.ctypes.data, q0.data_ptr(), qd0.data_ptr(), acts.data_ptr(),
-                 qs.data_ptr(), qds.data_ptr(), P, h, stream)
-    if err != 0:
-        raise RuntimeError(f"rollout kernel launch failed: cudaError_t {err}")
+    out = launch_bound(_launcher(model), Q, QD, ACTS)
     LAUNCHES += 1
-    return qs.transpose(1, 2), qds.transpose(1, 2)
+    return out
 
 
 def rollout_planar(model: PlanarModel, Q, QD, ACTS):

@@ -240,18 +240,9 @@ def occupancy(lib, ptxas_log: str, model: SpatialModel) -> dict:
     ``csrc/spatial_rollout.cu`` (``lib``, a ctypes.CDLL, and its ptxas log):
     registers, stack and spill bytes, dynamic shared memory per block and
     the warps an SM holds at once."""
-    from icem_torch.ops._build import ptxas_report
+    from icem_torch.ops import _build
 
-    shape = kernel_shape(model)
-    tag = "_".join(map(str, shape))
-    smem_fn = getattr(lib, f"spatial_smem_bytes_{tag}")
-    warps_fn = getattr(lib, f"spatial_warps_per_sm_{tag}")
-    smem_fn.restype = warps_fn.restype = ctypes.c_int
-    smem_fn.argtypes = warps_fn.argtypes = []
-    entry = "spatial_rollout_kernelILi" + "ELi".join(map(str, shape)) + "E"
-    rep = ptxas_report(ptxas_log, entry)
-    return dict(rep, shape=", ".join(map(str, shape)), smem_per_block=smem_fn(),
-                warps_per_sm=warps_fn())
+    return _build.occupancy(lib, ptxas_log, "spatial", kernel_shape(model))
 
 
 def launch_bound(kernel: BoundKernel, Q, QD, ACTS):

@@ -50,6 +50,18 @@ def test_kernel_matches_plain_version(cuda, P):
     assert bool(torch.isfinite(qds).all())
 
 
+def test_kernel_reads_strided_rows(cuda):
+    """The env passes Q and QD as column slices of its [P, 2 nd] state."""
+    model = make_cheetah_model(dt=0.05, n_substeps=20)
+    Q, QD, A = _inputs(127, 3, cuda)
+    S = torch.cat([Q, QD], dim=1)
+    Qv, QDv = S[:, :9], S[:, 9:]
+    assert Qv.stride(0) == QDv.stride(0) == 18
+    qs, qds = pr.rollout_planar(model, Qv, QDv, A)
+    qs_c, qds_c = pr.rollout_planar(model, Q, QD, A)
+    assert torch.equal(qs, qs_c) and torch.equal(qds, qds_c)
+
+
 def test_env_step_is_one_launch(cuda):
     env = HalfCheetah(exclude_current_positions_from_observation=True)
     state = env.init_state(torch.Generator(device=cuda).manual_seed(0))

@@ -1,11 +1,12 @@
 """The rollout kernel's body, built for the CPU.
 
 ``csrc/planar_step.cuh`` holds the per-trajectory physics once, for nvcc and
-for a host compiler. Here g++ builds it through the test-only shim
-``csrc/planar_rollout_host.cpp`` and it is held against the plain version,
-``rollout_planar_reference``, with the kernel's own parameter packing and
-trajectory-minor layouts. Tolerance 1e-4: the same float32 operations in
-another order.
+for a host compiler, as phases of a group of lanes over a workspace. Here g++
+builds it through the test-only shim ``csrc/planar_rollout_host.cpp``, which
+runs each phase for the group's lanes in turn, and it is held against the
+plain version, ``rollout_planar_reference``, with the kernel's own parameter
+packing and layouts. Tolerance 1e-4: the same float32 operations in another
+order.
 """
 
 import ctypes
@@ -66,20 +67,40 @@ def host_lib(tmp_path_factory):
     return ctypes.CDLL(str(out))
 
 
-def _host_rollout(lib, model, Q, QD, A):
+def _rows(x):
+    """x [P, nd] as the kernel takes it: its rows where they are, at their
+    stride in floats, once its columns are adjacent."""
+    if x.strides[1] != x.itemsize:
+        x = np.ascontiguousarray(x)
+    return x, x.strides[0] // x.itemsize
+
+
+def _host_rollout(lib, model, Q, QD, A, descending=False):
+    """The body run lane by lane, in the kernel's layouts: Q, QD [P, nd]
+    with a row stride and A [P, h, na] as they are, (qs, qds) [h, P, nd]."""
     shape = "_".join(map(str, pr.kernel_shape(model)))
     fn = getattr(lib, f"planar_rollout_host_{shape}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int]
+    ptr, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = [ptr, ptr, ll, ptr, ll, ptr, ptr, ptr, ll, ctypes.c_int, ctypes.c_int]
     P, h = A.shape[0], A.shape[1]
     params = pr.pack_params(model)
-    q0, qd0 = np.ascontiguousarray(Q.T), np.ascontiguousarray(QD.T)
-    acts = np.ascontiguousarray(A.transpose(1, 2, 0))
-    qs = np.empty((h, model.ndof, P), np.float32)
+    (q0, ldq), (qd0, ldqd) = _rows(Q), _rows(QD)
+    acts = np.ascontiguousarray(A)
+    qs = np.empty((h, P, model.ndof), np.float32)
     qds = np.empty_like(qs)
-    assert fn(params.ctypes.data, q0.ctypes.data, qd0.ctypes.data, acts.ctypes.data,
-              qs.ctypes.data, qds.ctypes.data, P, h) == 0
-    return qs.transpose(0, 2, 1), qds.transpose(0, 2, 1)
+    assert fn(params.ctypes.data, q0.ctypes.data, ldq, qd0.ctypes.data, ldqd,
+              acts.ctypes.data, qs.ctypes.data, qds.ctypes.data, P, h, int(descending)) == 0
+    return qs, qds
+
+
+def _inputs(model, P, h, seed):
+    rng = np.random.default_rng(seed)
+    nd, na = model.ndof, len(model.actuator_dof)
+    Q = rng.uniform(-0.1, 0.1, (P, nd)).astype(np.float32)
+    QD = (0.1 * rng.standard_normal((P, nd))).astype(np.float32)
+    A = rng.uniform(-1, 1, (P, h, na)).astype(np.float32)
+    return Q, QD, A
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -121,6 +142,39 @@ def test_kernel_body_over_the_whole_horizon(host_lib):
     late, late_ulp = np.quantile(gap[20:], 0.99), np.quantile(ulp_gap[20:], 0.99)
     assert late < 1e-3, late
     assert late < 4 * late_ulp, (late, late_ulp)
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_lane_order_does_not_change_the_result(host_lib, name):
+    """On the card the lanes of a group run a phase at once. A phase that
+    read a slot another lane writes in the same phase would race there; here
+    it makes the two lane orders disagree, so they must agree to the bit."""
+    model = MODELS[name]()
+    Q, QD, A = _inputs(model, P=8, h=4, seed=5)
+    qs, qds = _host_rollout(host_lib, model, Q, QD, A)
+    qs_r, qds_r = _host_rollout(host_lib, model, Q, QD, A, descending=True)
+    # the shim fills each workspace with NaNs: a slot read unwritten shows
+    assert np.all(np.isfinite(qs)) and np.all(np.isfinite(qds))
+    np.testing.assert_array_equal(qs, qs_r)
+    np.testing.assert_array_equal(qds, qds_r)
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_kernel_body_reads_strided_rows(host_lib, name):
+    """The env passes Q and QD as column slices of its [P, 2 nd + k] state;
+    the body reads them at that row stride and gives what it gives on
+    contiguous copies, to the bit."""
+    model = MODELS[name]()
+    Q, QD, A = _inputs(model, P=8, h=3, seed=7)
+    n = model.ndof
+    states = np.concatenate([Q, QD, np.full((len(Q), 3), np.nan, np.float32)], axis=1)
+    q_view, qd_view = states[:, :n], states[:, n:2 * n]
+    assert _rows(q_view)[1] == _rows(qd_view)[1] == 2 * n + 3
+    qs, qds = _host_rollout(host_lib, model, q_view, qd_view, A)
+    qs_c, qds_c = _host_rollout(host_lib, model, Q, QD, A)
+    assert np.all(np.isfinite(qs)) and np.all(np.isfinite(qds))
+    np.testing.assert_array_equal(qs, qs_c)
+    np.testing.assert_array_equal(qds, qds_c)
 
 
 @pytest.mark.parametrize("name", list(MODELS))

@@ -39,7 +39,27 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
 8. times the spatial kernel at both h = 30 shapes with its plain version and
    its bound, and the Ant3D plan step;
 9. prints, from the same profile build, the cycles one warp of the spatial
-   kernel spends in each phase group of a control step at both shapes.
+   kernel spends in each phase group of a control step at both shapes;
+10. holds both kernels against their plain versions at the shapes the
+    experiment driver launches on the shipped i-cem-blitz settings, and
+    times them there: the planar kernel at P = 43, 32 and 25 (h = 30), the
+    spatial one at Ant's and Humanoid3D's P = 131, h = 12 and
+    HumanoidStandup3D's P = 43, h = 30 (its plain version over the first 12
+    steps);
+11. runs the driver, ``icem_torch.main.run``, on
+    settings/halfcheetah_running/i-cem-blitz.json (1 episode of 1,000
+    steps), settings/ant/i-cem-blitz.json and humanoid/i-cem-blitz.json
+    (300 steps each) and settings/humanoid_standup/i-cem-blitz.json with
+    task_horizon 210 (5 episodes, 2 chunks each), each as shipped otherwise
+    and under a
+    temporary model_dir: launches, return, ms per control step, env steps/s,
+    host waits for the card, and the device idle share over a 50-step
+    episode;
+12. resumes a HalfCheetah run from its checkpoint, and reloads a controller
+    saved on the card: its next action must be the same to the bit.
+
+The MpcICem phases build their controllers from the settings files as the
+driver does (``icem_torch.main.get_controllers``).
 
 Every check raises on failure, so the script exits non-zero and prints no
 result. It also fails where there is no CUDA device: nothing runs on the CPU.
@@ -54,6 +74,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -251,6 +272,29 @@ def _replay_one_step(model, Q, QD, A, qs, qds, rows, steps: int, reference=None)
     return local.T
 
 
+# Below this many trajectories the late window's 0.99 quantile is set by
+# one or two chaotic trajectories and says nothing of the kernel; there each
+# trajectory is held to the bits of the same rows inside a launch of this
+# many (whose population the quantile rules measure).
+EMBED_P = 1024
+
+
+def _check_embedded(rollout, model, Q, QD, A, qs, qds, big, tag: str):
+    """Each trajectory of a small launch gives the bits of the same inputs
+    at rows 7.. of a launch of ``EMBED_P`` rows: a trajectory's result does
+    not depend on the population, on a partly filled warp or on its group's
+    place in the warp. ``big``: (Q, QD, A) of EMBED_P rows, strided as the
+    env passes them, whose rows 7..7+P are overwritten."""
+    P = Q.shape[0]
+    bq, bqd, ba = big
+    bq[7:7 + P], bqd[7:7 + P], ba[7:7 + P] = Q, QD, A
+    gq, gqd = rollout(model, bq, bqd, ba)
+    same = torch.equal(gq[:, 7:7 + P], qs) and torch.equal(gqd[:, 7:7 + P], qds)
+    log(f"[{tag}]   the {P} trajectories at rows 7..{6 + P} of a launch of {EMBED_P}: "
+        f"{'the same bits' if same else 'DIFFERENT bits'} over all {qs.shape[0]} steps")
+    check(same, f"{tag}: P={P} differs from the same rows of a launch of {EMBED_P}")
+
+
 def phase_kernel_vs_plain(device, shapes):
     """The kernel against its plain version at every shape the main path
     launches.
@@ -266,6 +310,9 @@ def phase_kernel_vs_plain(device, shapes):
     Last 10 steps: the dynamics amplify roundoff, so the gap is held to
     what a one-ulp change of the start state does to the kernel itself: the
     0.99 quantile of |dq| under 1e-3 and within 4x of the one-ulp gap's.
+    Below EMBED_P trajectories the 4x is not held (one chaotic trajectory
+    sets the quantile); there every trajectory must give the bits of the
+    same inputs inside a launch of EMBED_P rows (``_check_embedded``).
 
     Returns (the largest error checked over the first 3 steps of every
     shape, a diverged trajectory counting with its one-step errors; the
@@ -327,6 +374,10 @@ def phase_kernel_vs_plain(device, shapes):
             checked = torch.maximum(checked, local.max())
         worst = max(worst, float(checked))
         log(f"[kernel]   largest error checked: {float(checked):.3e} (limit 1e-4)")
+        if P < EMBED_P:
+            _check_embedded(rollout_planar, model, Q, QD, A, qs, qds,
+                            _seeded_rollout_inputs(model, EMBED_P, h, device, SEED + 50 + k),
+                            "kernel")
         if h < 20:
             continue
         log(f"[kernel]   |dq|  quantiles {QUANTILES} over all {h} steps: {_quantiles(dq)}")
@@ -339,9 +390,11 @@ def phase_kernel_vs_plain(device, shapes):
             f"moved one ulp vs kernel: {_quantiles(late_ulp)}")
         q99 = float(np.quantile(late.cpu().numpy(), 0.99))
         q99_ulp = float(np.quantile(late_ulp.cpu().numpy(), 0.99))
+        ratio_rule = P >= EMBED_P
         log(f"[kernel]   steps {h - 9}-{h}: 0.99 quantile of |dq| {q99:.3e} (limit 1e-3), "
-            f"{q99 / q99_ulp:.3f}x the one-ulp gap's {q99_ulp:.3e} (limit 4x)")
-        check(q99 < 1e-3 and q99 < 4 * q99_ulp,
+            f"{q99 / q99_ulp:.3f}x the one-ulp gap's {q99_ulp:.3e} "
+            f"({'limit 4x' if ratio_rule else 'not held below ' + str(EMBED_P) + ' trajectories'})")
+        check(q99 < 1e-3 and (q99 < 4 * q99_ulp or not ratio_rule),
               f"late-horizon gap at P={P}: 0.99 quantile {q99:.3e}, one-ulp {q99_ulp:.3e}")
     return worst, plain_ms
 
@@ -400,22 +453,19 @@ def phase_colored_noise(device):
     check(abs(std - 1.0) < 0.05, f"total std {std} not within 5% of 1")
 
 
-def profile_plan_steps(cfg, model, env, pstate, state, obs, steps: int, tag: str = "profile"):
-    """Where a plan step's time goes: device time by kernel and the device's
-    idle share, from torch.profiler over a few steady plan steps (the
-    profiler's own overhead lengthens the host side)."""
+def profile_window(fn, steps: int, tag: str):
+    """Where ``steps`` control steps' time goes: ``fn()`` runs them under
+    torch.profiler; prints the wall time per step, the device time by kernel
+    and the device's idle share (the profiler's own overhead lengthens the
+    host side). Returns the idle share, or None where the profiler saw no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from icem_torch.controllers import icem as ic
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            res = ic.plan_step(cfg, model.predict_fn, env.cost_fn, pstate, obs, state)
-            pstate = res.state
-            state, obs, _, _ = env.step(state, res.action)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # kernel rows only: an operator's row repeats its kernels' device time
@@ -424,19 +474,50 @@ def profile_plan_steps(cfg, model, env, pstate, state, obs, steps: int, tag: str
     rows = sorted((e for e in kernels if device_us(e) > 0), key=device_us, reverse=True)
     busy_ms = sum(device_us(e) for e in rows) / 1e3 / steps
     if busy_ms == 0:
-        log(f"[{tag}] the profiler saw no device time: device busy share not measured")
-        return
-    log(f"[{tag}] per plan step + env step under the profiler: wall {wall_ms:.3f} ms, "
-        f"kernels {busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
+        log(f"[{tag}] the profiler saw no device time: device idle share not measured")
+        return None
+    idle = 1 - busy_ms / wall_ms
+    log(f"[{tag}] per control step under the profiler, {steps} steps: wall {wall_ms:.3f} ms, "
+        f"kernels {busy_ms:.3f} ms, device idle share {idle:.3f}")
     for e in rows[:8]:
         log(f"[{tag}]   {device_us(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:5d} "
             f"calls/step  {e.key[:90]}")
+    return idle
+
+
+def profile_plan_steps(cfg, model, env, pstate, state, obs, steps: int, tag: str = "profile"):
+    """profile_window over a few steady plan steps, each with its env step."""
+    from icem_torch.controllers import icem as ic
+
+    def run():
+        nonlocal pstate, state, obs
+        for _ in range(steps):
+            res = ic.plan_step(cfg, model.predict_fn, env.cost_fn, pstate, obs, state)
+            pstate = res.state
+            state, obs, _, _ = env.step(state, res.action)
+
+    profile_window(run, steps, tag)
+
+
+def settings_controller(name: str, device, *overrides):
+    """(env, controller) of ``settings/<name>.json`` with overrides,
+    built as the driver builds them (``icem_torch.main.get_controllers``)."""
+    from icem_torch.envs import env_from_string
+    from icem_torch.main import get_controllers
+    from icem_torch.models import forward_model_from_string
+    from icem_torch.runtime.config import apply_overrides, resolve_settings
+
+    params = apply_overrides(resolve_settings(f"settings/{name}.json"), list(overrides))
+    env = env_from_string(params.env, **params.get("env_params", {}))
+    model = forward_model_from_string(params.forward_model)(
+        env=env, **params.get("forward_model_params", {}))
+    return env, get_controllers(params, env, model, device)[1]
 
 
 def phase_main_path(device, cfg, plan_steps: int):
     from icem_torch.controllers import icem as ic
     from icem_torch.envs.cheetah import HalfCheetah
-    from icem_torch.models.ground_truth import GroundTruthModel, ParallelGroundTruthModel
+    from icem_torch.models.ground_truth import GroundTruthModel
     from icem_torch.ops import planar_rollout
 
     env = HalfCheetah(exclude_current_positions_from_observation=True,
@@ -494,14 +575,12 @@ def phase_main_path(device, cfg, plan_steps: int):
 
     profile_plan_steps(cfg, model, env, pstate, state, obs, steps=3)
 
-    # the controller API at the settings file's own population
-    # (settings/halfcheetah_running/i-cem-blitz.json over its defaults)
-    ctrl_env = HalfCheetah(exclude_current_positions_from_observation=True,
-                           penalise_flipping=True)
-    ctrl = ic.MpcICem(env=ctrl_env, forward_model=ParallelGroundTruthModel(env=ctrl_env),
-                      horizon=30, num_simulated_trajectories=40,
-                      action_sampler_params=dict(noise_beta=0.25, elites_size=10),
-                      seed=SEED + 2, sharded="auto", device=device)
+    # the controller API at the settings file's own population, built from
+    # the resolved settings as the driver builds it
+    ctrl_env, ctrl = settings_controller("halfcheetah_running/i-cem-blitz", device,
+                                            f"controller_params.seed={SEED + 2}")
+    check(ctrl.cfg.num_simulated_trajectories == 40 and ctrl.cfg.noise_beta == 0.25
+          and ctrl.cfg.cem_loop == "unrolled", f"HalfCheetah settings resolved to {ctrl.cfg}")
     s = ctrl_env.init_state(env_gen)
     o = ctrl_env.observation(s)
     ctrl.beginning_of_rollout(observation=o, state=s)
@@ -513,8 +592,9 @@ def phase_main_path(device, cfg, plan_steps: int):
     check(planar_rollout.LAUNCHES - before == 5 * 4,
           f"MpcICem: {planar_rollout.LAUNCHES - before} launches in 5 steps")
     check(bool(torch.isfinite(s).all()), "MpcICem episode state is not finite")
-    log(f"[main] MpcICem.get_action at pop 40: 5 steps, 4 launches each, "
-        f"last expected cost {float(ctrl.last_expected_cost):.3f}")
+    log(f"[main] MpcICem.get_action from settings/halfcheetah_running/i-cem-blitz.json "
+        f"(pop 40): 5 steps, 4 launches each, last expected cost "
+        f"{float(ctrl.last_expected_cost):.3f}")
     return dict(launches=main_launches, plan_ms=plan_ms, traj_per_step=traj_per_step,
                 late_reward=late)
 
@@ -653,7 +733,9 @@ def phase_spatial_kernel_vs_plain(device, cases):
     limit switch within roundoff diverges even from a shared start state, so
     the largest is printed, not held). Over the last 10 compared steps the
     0.99 quantile of |dq| < 1e-3 and < 4x the gap that a one-ulp change of
-    the start state opens in the kernel itself.
+    the start state opens in the kernel itself; below EMBED_P trajectories
+    the 4x is not held, and every trajectory must give the bits of the same
+    inputs inside a launch of EMBED_P rows, as for the planar kernel.
 
     Returns (largest error checked over the first 3 steps, per env name the
     plain version's ms and the steps it covered at the first h = 30 shape)."""
@@ -723,6 +805,10 @@ def phase_spatial_kernel_vs_plain(device, cases):
             f"{int((local >= 1e-4).sum())} of {local.numel()} at 1e-4 or more")
         check(q999_local < 1e-4,
               f"{name}: 0.999 quantile of one-step errors {q999_local:.3e} >= 1e-4 at P={P}")
+        if P < EMBED_P:
+            _check_embedded(rollout_spatial, model, Q, QD, A, qs, qds,
+                            _spatial_rollout_inputs(env, EMBED_P, h, device, SEED + 60 + k),
+                            "spatial")
         if steps < 10:
             continue
         log("[spatial]   max |dq| per control step: "
@@ -731,9 +817,11 @@ def phase_spatial_kernel_vs_plain(device, cases):
         late_ulp = (qs - qs_ulp).abs()[steps - 10: steps]
         q99 = float(np.quantile(late.cpu().numpy(), 0.99))
         q99_ulp = float(np.quantile(late_ulp.cpu().numpy(), 0.99))
+        ratio_rule = P >= EMBED_P
         log(f"[spatial]   steps {steps - 9}-{steps}: 0.99 quantile of |dq| {q99:.3e} (limit "
-            f"1e-3), {q99 / q99_ulp:.3f}x the one-ulp gap's {q99_ulp:.3e} (limit 4x)")
-        check(q99 < 1e-3 and q99 < 4 * q99_ulp,
+            f"1e-3), {q99 / q99_ulp:.3f}x the one-ulp gap's {q99_ulp:.3e} "
+            f"({'limit 4x' if ratio_rule else 'not held below ' + str(EMBED_P) + ' trajectories'})")
+        check(q99 < 1e-3 and (q99 < 4 * q99_ulp or not ratio_rule),
               f"{name}: late-window gap at P={P}: 0.99 quantile {q99:.3e}, one-ulp {q99_ulp:.3e}")
     return worst, plain
 
@@ -805,22 +893,14 @@ def phase_spatial_main_path(device, plan_steps: int):
 
 
 def phase_spatial_controller(device):
-    """MpcICem.get_action through the registry at settings/ant's own
-    controller parameters (i-cem-blitz over its defaults): pop 128, h 12,
-    the scanned loop chosen by cem_loop="auto", beta 1.0."""
-    from icem_torch.controllers import icem as ic
-    from icem_torch.envs import env_from_string
-    from icem_torch.models.ground_truth import ParallelGroundTruthModel
+    """MpcICem.get_action built from settings/ant/i-cem-blitz.json as the
+    driver builds it: pop 128, h 12, the scanned loop, beta 1.0."""
     from icem_torch.ops import spatial_rollout
 
-    env = env_from_string("Ant", exclude_current_positions_from_observation=False)
-    ctrl = ic.MpcICem(env=env, forward_model=ParallelGroundTruthModel(env=env, num_parallel=8),
-                      horizon=12, num_simulated_trajectories=128, factor_decrease_num=1.25,
-                      action_sampler_params=dict(noise_beta=1.0, elites_size=10, alpha=0.1,
-                                                 fraction_elites_reused=0.3, init_std=0.5,
-                                                 opt_iterations=3),
-                      cem_loop="auto", sharded="auto", seed=SEED + 2, device=device)
-    check(ctrl.cfg.cem_loop == "scan", f"cem_loop auto resolved to {ctrl.cfg.cem_loop}")
+    env, ctrl = settings_controller("ant/i-cem-blitz", device,
+                                       f"controller_params.seed={SEED + 2}")
+    check(ctrl.cfg.cem_loop == "scan" and ctrl.cfg.num_simulated_trajectories == 128
+          and ctrl.cfg.horizon == 12, f"Ant settings resolved to {ctrl.cfg}")
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 3)
     s = env.init_state(gen)
@@ -834,8 +914,8 @@ def phase_spatial_controller(device):
     n = spatial_rollout.LAUNCHES - before
     check(n == 5 * 4, f"MpcICem on Ant: {n} launches in 5 steps")
     check(bool(torch.isfinite(s).all()), "MpcICem Ant episode state is not finite")
-    log(f"[ant] MpcICem.get_action via env_from_string('Ant'), pop 128 h 12 scan: 5 steps, "
-        f"4 launches each, last expected cost {float(ctrl.last_expected_cost):.3f}")
+    log(f"[ant] MpcICem.get_action from settings/ant/i-cem-blitz.json, pop 128 h 12 scan: "
+        f"5 steps, 4 launches each, last expected cost {float(ctrl.last_expected_cost):.3f}")
 
 
 def phase_humanoid(device, plan_steps: int):
@@ -942,6 +1022,174 @@ def phase_spatial_profile(device, envs):
                         for g, c in sorted(zip(PROFILE_GROUPS, cycles), key=lambda x: -x[1])))
 
 
+# ---------------------------------------------------------------------------
+# the experiment driver: python -m icem_torch.main's run() on shipped settings
+
+# (settings, overrides, kernel the run launches, control steps, launches per
+# step, the least return it must reach or None for finite only, the index of
+# the root's pitch angle in the observation or None)
+DRIVER_RUNS = (
+    # past +-pi/2 the flip penalty of the cost is a constant: the pitch
+    # angle tells a running cheetah from a rolling one
+    ("halfcheetah_running/i-cem-blitz", (), "planar", 1000, 4, 3000.0, 1),
+    ("ant/i-cem-blitz", (), "spatial", 300, 4, 300.0, None),
+    ("humanoid/i-cem-blitz", (), "spatial", 300, 4, None, None),
+    # 5 episodes of 210 steps exceed SpatialEnv.fused_episode_step_limit
+    # (1,000): the rollout manager runs them in 2 chunks of 105 steps
+    ("humanoid_standup/i-cem-blitz", ("rollout_params.task_horizon=210",), "spatial",
+     5 * 210, 4, None, None),
+)
+
+
+def phase_driver_times(device, planar_shapes, spatial_cases):
+    """ms per launch of both kernels at the shapes the driver launches,
+    CUDA events over 20 launches, on strided rows as the env passes them.
+    ``spatial_cases``: (env, P, h)."""
+    from icem_torch.envs.cheetah import HalfCheetah
+    from icem_torch.ops.planar_rollout import rollout_planar
+    from icem_torch.ops.spatial_rollout import rollout_spatial
+
+    model = HalfCheetah().model
+    for P, h in planar_shapes:
+        Q, QD, A = _seeded_rollout_inputs(model, P, h, device, SEED)
+        ms = cuda_ms(lambda: rollout_planar(model, Q, QD, A), reps=20, warmup=2)
+        log(f"[times] driver shape: planar kernel, HalfCheetah P={P} h={h}: {ms:.4f} ms per launch")
+    for env, P, h in spatial_cases:
+        Q, QD, A = _spatial_rollout_inputs(env, P, h, device, SEED + 20)
+        ms = cuda_ms(lambda: rollout_spatial(env.model, Q, QD, A), reps=20, warmup=2)
+        log(f"[times] driver shape: spatial kernel, {env.name} P={P} h={h}: {ms:.4f} ms per launch")
+
+
+def phase_driver(device, workdir: str):
+    """``icem_torch.main.run`` on the shipped i-cem-blitz settings, under a
+    temporary model_dir: the kernel launches of each run (counts set to 0
+    just before it, read just after), its return, ms per control step and
+    env steps/s (from the run's own train_exec_time, which times the
+    episodes), the host waits for the card it made, and the device idle
+    share over a 50-step episode of the same settings."""
+    import contextlib
+    import os
+    import pickle
+    import warnings
+
+    from icem_torch import main as tmain
+    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime.config import apply_overrides, resolve_settings
+    from icem_torch.runtime.rollout import RolloutManager
+
+    @contextlib.contextmanager
+    def host_waits():
+        """Counts the operations that make the host wait for the card, by
+        torch.cuda.set_sync_debug_mode("warn"): each one warns."""
+        counted = []
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                yield counted
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counted.append(sum("synchroniz" in str(w.message) for w in caught))
+
+    with host_waits() as probe:  # the counter sees a read-back
+        float(torch.ones((), device=device))
+    check(probe[0] >= 1, "set_sync_debug_mode('warn') counted no host wait for .item()")
+
+    counters = {"planar": planar_rollout, "spatial": spatial_rollout}
+    for name, overrides, kernel, steps, per_step, least, pitch in DRIVER_RUNS:
+        tag = name.split("/")[0]
+        params = apply_overrides(resolve_settings(f"settings/{name}.json"), [
+            *overrides, f"model_dir={os.path.join(workdir, tag)}", f"seed={SEED}"])
+        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+        with host_waits() as waits:
+            t0 = time.perf_counter()
+            info = tmain.run(params, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: m.LAUNCHES for k, m in counters.items()}
+        syncs = waits[0]
+        ret = info["train_mean_return"][-1]
+        exec_s = info["train_exec_time"][-1]
+        ms_step = exec_s * 1e3 / steps
+        log(f"[driver] settings/{name}.json{' ' + ' '.join(overrides) if overrides else ''}: "
+            f"{params.number_of_rollouts} x {params.rollout_params.task_horizon} steps; return "
+            f"{ret:.2f} (std {info['train_std_return'][-1]:.2f}); episodes {exec_s:.3f} s, "
+            f"{ms_step:.3f} ms per control step, {steps / exec_s:.1f} env steps/s; run() "
+            f"{wall:.3f} s in all; launches {launches}; {syncs} host waits for the card "
+            f"in the whole run")
+        with open(os.path.join(params.model_dir, "checkpoints_latest", "rollout_buffer.pkl"),
+                  "rb") as f:
+            episodes = pickle.load(f)
+        note = ""
+        if pitch is not None:
+            angle = np.concatenate([r["observations"][:, pitch] for r in episodes])
+            past = np.flatnonzero(np.abs(angle) > np.pi / 2)
+            note = (f"; root pitch in [{angle.min():.3f}, {angle.max():.3f}] rad, first past "
+                    f"+-pi/2 at step {past[0] if len(past) else 'none'}")
+        log(f"[driver]   episode lengths {[len(r) for r in episodes]}{note}")
+        check(launches[kernel] == per_step * steps and sum(launches.values()) == launches[kernel],
+              f"{name}: launches {launches}, expected {per_step * steps} of {kernel}")
+        check(np.isfinite(ret), f"{name}: non-finite return {ret}")
+        if least is not None:
+            check(ret > least, f"{name}: return {ret:.2f} not above {least}")
+        # the episode loop itself makes none: what remains is set-up,
+        # checkpoints and one copy per field and chunk
+        check(syncs < steps // 10, f"{name}: {syncs} host waits in {steps} steps")
+
+        # the device idle share over a 50-step episode of the same settings
+        env, ctrl = settings_controller(name, device, *overrides, f"seed={SEED}")
+        rm = RolloutManager(env, {**params.rollout_params, "task_horizon": 50}, device=device)
+        rm.sample(ctrl)  # first launches of this env's model: binding, caches
+        profile_window(lambda: rm.sample(ctrl), 50, f"driver {tag}")
+
+
+def phase_driver_resume(device, workdir: str):
+    """A HalfCheetah run of 2 iterations of 20 steps, resumed by a second
+    run with load "auto" that continues at iteration 2; and a controller
+    saved mid-episode on the card and loaded into a fresh one gives the same
+    next action to the bit."""
+    import os
+
+    from icem_torch import main as tmain
+    from icem_torch.runtime.config import apply_overrides, resolve_settings
+
+    md = os.path.join(workdir, "resume")
+    base = ["rollout_params.task_horizon=20", f"model_dir={md}", f"seed={SEED}"]
+    params = apply_overrides(resolve_settings("settings/halfcheetah_running/i-cem-blitz.json"),
+                             base + ["training_iterations=2"])
+    first = tmain.run(params, device=device)
+    resumed = tmain.run(apply_overrides(params, ["training_iterations=3",
+                                                 "checkpoints.load=auto"]), device=device)
+    check(first["step"] == [0, 1] and resumed["step"] == [0, 1, 2],
+          f"resume: steps {first['step']} then {resumed['step']}")
+    check(resumed["train_mean_return"][:2] == first["train_mean_return"],
+          "resume: the restored history differs")
+    check(os.readlink(os.path.join(md, "checkpoints_latest")) == "checkpoints_002",
+          "resume: checkpoints_latest does not point at iteration 2")
+
+    env, ctrl = settings_controller("halfcheetah_running/i-cem-blitz", device, *base)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 6)
+    state = env.init_state(gen)
+    obs = env.observation(state)
+    ctrl.beginning_of_rollout(observation=obs, state=state)
+    for _ in range(3):
+        a = ctrl.get_action(obs, state)
+        state, obs, _, _ = env.step(state, torch.as_tensor(a, device=device))
+    path = os.path.join(workdir, "controller")
+    ctrl.save(path)
+    a_orig = ctrl.get_action(obs, state)
+    fresh = settings_controller("halfcheetah_running/i-cem-blitz", device, *base)[1]
+    fresh.load(path)
+    check(fresh._pstate.generator.device.type == "cuda", "the loaded generator is not on the card")
+    a_loaded = fresh.get_action(obs, state)
+    check(np.array_equal(a_orig, a_loaded),
+          f"the reloaded controller's next action differs: {a_orig} vs {a_loaded}")
+    log(f"[driver] resume: iterations {first['step']} then {resumed['step']}; a controller "
+        f"saved after 3 steps on the card and loaded into a fresh one gives the same next "
+        f"action to the bit: {np.array2string(a_orig, precision=4)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's main path runs on the card, not on the CPU")
@@ -983,6 +1231,23 @@ def main() -> int:
     phase_humanoid(device, plan_steps=5)
     stimes = phase_spatial_times(device, [ant, humanoid], splain)
     phase_spatial_profile(device, [ant, humanoid])
+
+    # the kernels at the shapes the driver launches, from the settings it runs
+    cheetah_cfg = settings_controller("halfcheetah_running/i-cem-blitz", device)[1].cfg
+    derr, _ = phase_kernel_vs_plain(device, main_path_shapes(cheetah_cfg)[:-1])
+    # (env, P, h) of each spatial run's planner launches (the scanned loop:
+    # n_0 fresh rows + the elites at every iteration)
+    spatial_shapes = []
+    for name in ("ant/i-cem-blitz", "humanoid/i-cem-blitz", "humanoid_standup/i-cem-blitz"):
+        env, ctrl = settings_controller(name, device)
+        spatial_shapes.append((env, ctrl.cfg.num_simulated_trajectories + ctrl.cfg.elites_kept,
+                               ctrl.cfg.horizon))
+    dserr, _ = phase_spatial_kernel_vs_plain(device, [
+        (env, P, h, min(h, 12)) for env, P, h in spatial_shapes])
+    phase_driver_times(device, main_path_shapes(cheetah_cfg)[:-1], spatial_shapes)
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_driver(device, workdir)
+        phase_driver_resume(device, workdir)
     log(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s after start-up")
 
     a = stimes[ant.name]
@@ -992,7 +1257,7 @@ def main() -> int:
         "source": "icem_torch/csrc/planar_rollout.cu",
         "replaces": "icem_tpu/ops/planar_rollout.py:103",
         "launches": path["launches"],
-        "max_abs_err": err,
+        "max_abs_err": max(err, derr),
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
@@ -1004,7 +1269,7 @@ def main() -> int:
         "source": "icem_torch/csrc/spatial_rollout.cu",
         "replaces": "icem_tpu/ops/spatial_rollout.py:128",
         "launches": spath["launches"],
-        "max_abs_err": serr,
+        "max_abs_err": max(serr, dserr),
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"],

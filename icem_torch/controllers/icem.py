@@ -26,7 +26,9 @@ of an episode masks its missing elites with a Python flag.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+import pickle
+from dataclasses import asdict, dataclass
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
@@ -36,6 +38,7 @@ import torch
 from icem_torch.device import resolve_device
 from icem_torch.models.base import rollout_open_loop, trajectory_cost
 from icem_torch.ops.colored_noise import sample_colored_action_noise
+from icem_torch.runtime.checkpoint import pack_pytree, unpack_pytree
 
 
 @dataclass(frozen=True)
@@ -200,6 +203,16 @@ def _refit(cfg: ICemConfig, mean, std, cand_actions, cand_costs, cand_last_obs):
     return mean, std, elite_actions, elite_costs, elite_last_obs
 
 
+def _best(cand_actions, cand_costs, cand_last_obs):
+    """The candidate at the first minimum cost: (actions, cost, last obs).
+
+    Indexed by a one-element index tensor: a 0-d index tensor would be read
+    back to the host (``Tensor.item``) and make the host wait for the card.
+    """
+    idx = torch.argmin(cand_costs, dim=0, keepdim=True)
+    return cand_actions[idx][0], cand_costs[idx][0], cand_last_obs[idx][0]
+
+
 def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
               model_state) -> PlanResult:
     """One environment step of iCEM planning.
@@ -261,10 +274,8 @@ def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
         cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
                                  cand_costs, float("inf"))
 
-        best_idx = torch.argmin(cand_costs)  # the first minimum
-        best_action_seq = cand_actions[best_idx]
-        best_cost = cand_costs[best_idx]
-        best_last_obs = cand_last_obs[best_idx]
+        best_action_seq, best_cost, best_last_obs = _best(cand_actions, cand_costs,
+                                                          cand_last_obs)
 
         mean, std, elite_actions, elite_costs, elite_last_obs = _refit(
             cfg, mean, std, cand_actions, cand_costs, cand_last_obs)
@@ -357,10 +368,8 @@ def _plan_step_scan(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState,
 
         cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
                                  cand_costs, float("inf"))
-        best_idx = torch.argmin(cand_costs)  # the first minimum
-        best_action_seq = cand_actions[best_idx]
-        best_cost = cand_costs[best_idx]
-        best_last_obs = cand_last_obs[best_idx]
+        best_action_seq, best_cost, best_last_obs = _best(cand_actions, cand_costs,
+                                                          cand_last_obs)
 
         mean, std, e_a, e_c, e_o = _refit(cfg, mean, std, cand_actions, cand_costs,
                                           cand_last_obs)
@@ -386,6 +395,8 @@ class MpcICem:
     """Controller with the reference API (beginning_of_rollout / get_action)
     around ``plan_step`` and its state. Settings keys the port does not use
     (``verbose``, ...) are accepted and ignored."""
+
+    needs_forward_model = True
 
     def __init__(self, *, env, forward_model, action_sampler_params=None,
                  horizon=30, num_simulated_trajectories=40, factor_decrease_num=1.25,
@@ -462,18 +473,74 @@ class MpcICem:
         # action; the ground-truth model is re-synced from reality instead)
         return result.action.cpu().numpy()
 
+    def end_of_rollout(self, total_time, total_return, mode):
+        pass
+
     # -- functional interface for device-side episode loops ------------------
     def init_plan_state(self, obs_dim: int, generator: torch.Generator) -> ICemState:
         return init_state(self.cfg, int(obs_dim), generator)
 
     def functional_plan(self):
-        """(pstate, obs, env_state) -> (action, pstate')."""
+        """(pstate, obs, env_state, model_params=None) -> (action, pstate'),
+        on device tensors and with no host round trip. ``model_params`` is
+        the learned-model weights argument of the JAX package's plan; the
+        port has ground-truth models only, so it is None."""
         cfg, predict_fn, cost_fn = self.cfg, self.forward_model.predict_fn, self.env.cost_fn
         init_model_state = self.forward_model.init_model_state
 
-        def plan(pstate, obs, env_state):
+        def plan(pstate, obs, env_state, model_params=None):
             res = plan_step(cfg, predict_fn, cost_fn, pstate, obs,
                             init_model_state(obs, env_state))
             return res.action, res.state
 
         return plan
+
+    @property
+    def live_model_params(self):
+        """Learned-model weights to feed ``functional_plan``: none for the
+        ground-truth models."""
+        return None
+
+    def train(self, buffer):
+        return {}
+
+    def save(self, path):
+        """Pickle the live planner state so that a resumed controller's next
+        action equals this one's to the bit: the distribution, the elite
+        memory, the generator's state and the synced model state."""
+        state = {
+            "cfg": asdict(self.cfg),
+            "was_reset": self.was_reset,
+            "pstate": pack_pytree(self._pstate) if self._pstate is not None else None,
+            "model_state": pack_pytree(self._model_state)
+            if self._model_state is not None else None,
+        }
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
+
+    def load(self, path):
+        """Restore what ``save`` wrote, onto this controller's device."""
+        if not os.path.exists(path):
+            return
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        saved_cfg = state.get("cfg") or {}
+        cfg = asdict(self.cfg)
+        # fields that determine the planner state's shapes: restoring across
+        # a change here would fail later, far from the cause
+        shape_fields = ("horizon", "action_dim", "elites_size",
+                        "num_simulated_trajectories", "fraction_elites_reused")
+        mismatched = {f: (saved_cfg.get(f), cfg[f]) for f in shape_fields
+                      if saved_cfg.get(f) != cfg[f]}
+        if saved_cfg != cfg:
+            if mismatched:
+                print(f"{type(self).__name__}.load: checkpoint planner shapes differ "
+                      f"({mismatched}); keeping fresh planner state")
+            else:
+                print(f"{type(self).__name__}.load: checkpoint was written with a "
+                      f"different controller config; restoring state anyway")
+        self.was_reset = bool(state.get("was_reset", False))
+        if state.get("pstate") is not None and not mismatched:
+            self._pstate = unpack_pytree(state["pstate"], self.device)
+        if state.get("model_state") is not None:
+            self._model_state = unpack_pytree(state["model_state"], self.device)

@@ -100,7 +100,25 @@ class Env:
         """Reconstruct a dynamics state from an observation (GT-model entry)."""
         raise NotImplementedError(f"{self.name} cannot reconstruct state from observation")
 
+    def is_success(self, observation, action, next_obs):
+        """Per-step success flag; None means the env has no success notion."""
+        return None
+
     # -- misc --------------------------------------------------------------
+    def get_fps(self) -> float:
+        return 1.0 / (self.dt * self.action_repeat)
+
+    def reset_with_mode(self, generator: torch.Generator, mode: str):
+        """(state, observation) of a fresh episode, on the generator's device."""
+        state = self.init_state(generator, mode)
+        return state, self.observation(state)
+
+    def seed(self, seed):  # host-API compatibility
+        return seed
+
+    def close(self):
+        return None
+
     @property
     def obs_dim(self) -> int:
         return self.observation_space.dim

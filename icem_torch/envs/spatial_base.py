@@ -22,6 +22,11 @@ from icem_torch.ops.spatial_rollout import rollout_spatial
 class SpatialEnv(Env):
     """Env whose dynamics live on the spatial 3D engine."""
 
+    # RolloutManager's fuse_on_device="auto" runs the device episode loop in
+    # chunks when one sample() call asks for more steps than this (all its
+    # episodes together); chunked episodes equal whole ones to the bit
+    fused_episode_step_limit = 1000
+
     def _post_step(self, state, new_state, action):
         """(obs, reward, done) from the transition; action arrives clipped."""
         raise NotImplementedError

@@ -110,3 +110,13 @@ class ForwardModel:
                                              model_state=None):
         """Sync the model to reality at the start of each planning step."""
         return self.init_model_state(observation, env_state)
+
+    # -- driver lifecycle (no-ops for models without weights) ---------------
+    def train(self, buffer):
+        return {}
+
+    def save(self, path):
+        return None
+
+    def load(self, path):
+        return None

@@ -26,11 +26,16 @@ class Seeding:
     _counters: dict = {}
 
     @classmethod
-    def set_seed(cls, seed: Optional[int] = None) -> int:
+    def set_seed(cls, seed: Optional[int] = None, env=None) -> int:
+        """Fix the root seed (a random one for None), seed numpy's global
+        generator with it and hand it to ``env.seed`` where given."""
         if seed is None:
             seed = secrets.randbits(31)
         cls.SEED = int(seed)
         cls._counters = {}
+        np.random.seed(cls.SEED & 0x7FFFFFFF)
+        if env is not None and hasattr(env, "seed"):
+            env.seed(cls.SEED)
         return cls.SEED
 
     @classmethod

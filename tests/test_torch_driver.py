@@ -1,0 +1,218 @@
+"""icem_torch's experiment driver (``icem_torch.main``) on the CPU, at a tiny
+size: the shipped settings run with overrides, write metrics, settings and
+checkpoints, resume where they stopped, and a saved controller's next action
+is reproduced to the bit. The port of ``tests/test_driver.py`` and
+``tests/test_controllers.py::test_controller_save_load_resume_fidelity``.
+"""
+
+import json
+import os
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icem_torch import main as tmain
+from icem_torch.controllers import controller_from_string
+from icem_torch.envs import env_from_string
+from icem_torch.models import forward_model_from_string
+from icem_torch.runtime.checkpoint import pack_pytree, unpack_pytree
+from icem_torch.runtime.config import apply_overrides, resolve_settings
+from icem_torch.runtime.rollout import RolloutManager
+from icem_torch.runtime.seeding import Seeding
+from icem_tpu.envs.cheetah import HalfCheetah as JaxCheetah
+
+ROOT = Path(__file__).resolve().parents[1]
+SETTINGS = {"halfcheetah": ROOT / "settings" / "halfcheetah_running" / "i-cem-blitz.json",
+            "ant": ROOT / "settings" / "ant" / "i-cem-blitz.json"}
+TINY = ["controller_params.num_simulated_trajectories=8", "controller_params.horizon=4",
+        "rollout_params.task_horizon=3", "training_iterations=2", "seed=3"]
+METRICS = ("train_mean_avg_reward", "train_mean_max_reward", "train_mean_return",
+           "train_std_return", "train_exec_time")
+
+
+def _params(env, model_dir, *extra):
+    return apply_overrides(resolve_settings(str(SETTINGS[env])),
+                           TINY + [f"model_dir={model_dir}", *extra])
+
+
+@pytest.mark.parametrize("env", ["halfcheetah", "ant"])
+def test_run_writes_metrics_settings_checkpoints_and_resumes(env, tmp_path):
+    md = str(tmp_path / env)
+    if env == "halfcheetah":  # the command line, as a user runs it
+        info = tmain.main(["main", str(SETTINGS[env]), *TINY, f"model_dir={md}",
+                           "--device", "cpu"])
+    else:
+        info = tmain.run(_params(env, md), device="cpu")
+    assert info["step"] == [0, 1]
+    for key in METRICS:
+        assert len(info[key]) == 2 and all(np.isfinite(info[key])), key
+    logged = [json.loads(line) for line in open(os.path.join(md, "metrics.jsonl"))]
+    assert {e["key"] for e in logged} == set(METRICS)
+    saved = json.load(open(os.path.join(md, "settings.json")))
+    assert saved == json.loads(json.dumps(_params(env, md), sort_keys=True))
+    assert "device" not in saved
+    latest = os.path.join(md, "checkpoints_latest")
+    assert os.path.islink(latest) and os.readlink(latest) == "checkpoints_001"
+    assert sorted(os.listdir(latest)) == ["controller", "main_state.npz", "reward_info.npy",
+                                          "rollout_buffer.pkl"]
+
+    # resume: load "auto" continues at iteration 2 with the history restored
+    resumed = tmain.run(_params(env, md, "training_iterations=3", "checkpoints.load=auto"),
+                        device="cpu")
+    assert resumed["step"] == [0, 1, 2]
+    for key in METRICS:
+        assert resumed[key][:2] == info[key], key
+    assert os.readlink(latest) == "checkpoints_002"
+
+
+@pytest.mark.parametrize("env", ["halfcheetah", "ant"])
+def test_controller_save_load_gives_the_same_next_action(env, tmp_path):
+    """A mid-episode checkpoint restores the planner exactly: distribution,
+    elite memory and the generator's state (the unrolled loop on
+    HalfCheetah, the scanned one on Ant)."""
+    params = _params(env, tmp_path, "controller_params.seed=21")
+    Seeding.set_seed(0)
+
+    def build():
+        e = env_from_string(params.env, **params.env_params)
+        model = forward_model_from_string(params.forward_model)(
+            env=e, **params.forward_model_params)
+        return e, tmain.get_controllers(params, e, model, device="cpu")[1]
+
+    e, ctrl = build()
+    state = e.init_state(Seeding.generator_for("start", "cpu"))
+    obs = e.observation(state)
+    ctrl.beginning_of_rollout(observation=obs, state=state)
+    for _ in range(3):  # mid-episode: elite memory and shifted mean are live
+        ctrl.get_action(obs, state)
+    path = str(tmp_path / "controller")
+    ctrl.save(path)
+    a_orig = ctrl.get_action(obs, state)
+
+    restored = build()[1]
+    restored.load(path)
+    assert restored._pstate.have_elites
+    np.testing.assert_array_equal(a_orig, restored.get_action(obs, state))
+
+    # a checkpoint of another planner shape leaves a fresh planner alone
+    other = apply_overrides(params, ["controller_params.horizon=5"])
+    fresh = tmain.get_controllers(other, e, restored.forward_model, device="cpu")[1]
+    fresh.load(path)
+    assert fresh._pstate is None
+
+
+def test_packed_generator_restores_only_on_its_device_type():
+    gen = torch.Generator().manual_seed(5)
+    tree = {"g": gen, "x": torch.arange(3.0), "n": (True, None)}
+    packed = pack_pytree(tree)
+    assert isinstance(packed["x"], np.ndarray) and packed["n"] == (True, None)
+    back = unpack_pytree(packed, "cpu")
+    assert torch.equal(torch.rand(4, generator=back["g"]), torch.rand(4, generator=gen))
+    with pytest.raises(ValueError, match="cpu generator state"):
+        unpack_pytree(packed, "cuda")
+
+
+def test_unported_names_and_options_raise(tmp_path):
+    for name in ("mpc-cem-std", "random"):
+        with pytest.raises(ImportError, match="known: \\['mpc-icem'\\]"):
+            controller_from_string(name)
+    for name in ("EnsembleModel", "RSSM"):
+        with pytest.raises(ImportError, match="GroundTruthModel"):
+            forward_model_from_string(name)
+    with pytest.raises(ImportError, match="mpc-cem-std"):
+        tmain.run(apply_overrides(resolve_settings(
+            str(ROOT / "settings" / "halfcheetah_running" / "cem-std.json")),
+            [f"model_dir={tmp_path / 'cem'}"]), device="cpu")
+    with pytest.raises(NotImplementedError, match="video"):
+        tmain.run(_params("halfcheetah", tmp_path / "rec", "rollout_params.record=true"),
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="render"):
+        tmain.run(_params("halfcheetah", tmp_path / "ren", "rollout_params.render=true"),
+                  device="cpu")
+
+
+def test_run_without_a_device_raises_where_there_is_no_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmain.run(_params("halfcheetah", tmp_path / "none"))
+    assert not (tmp_path / "none").exists()
+
+
+def test_metrics_logger_writes_jsonl_timers_and_a_device_trace(tmp_path):
+    from icem_torch.runtime.metrics import MetricsLogger
+
+    logger = MetricsLogger(str(tmp_path), use_tensorboard=False)
+    logger.log(1.5, key="a")
+    logger.log(2.5, key="a")
+    with logger.phase_timer("plan", step=7):
+        pass
+    with logger.device_trace(str(tmp_path / "trace")):
+        torch.ones(3).sum()
+    logger.close()
+    lines = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert [(e["key"], e["value"], e["step"]) for e in lines[:2]] == [("a", 1.5, 0), ("a", 2.5, 1)]
+    assert lines[2]["key"] == "plan_time" and lines[2]["step"] == 7
+    assert logger.step_per_key == {"a": 2}
+    assert json.load(open(tmp_path / "trace" / "trace.json"))["traceEvents"]
+
+
+def test_set_seed_seeds_numpy_and_the_env():
+    seen = []
+
+    class Env:
+        def seed(self, seed):
+            seen.append(seed)
+
+    assert Seeding.set_seed(11, env=Env()) == 11 and seen == [11]
+    first = np.random.rand(3)
+    Seeding.set_seed(11)
+    np.testing.assert_array_equal(np.random.rand(3), first)
+    env = env_from_string("HalfCheetah")
+    assert env.get_fps() == 20.0 and env.seed(3) == 3 and env.close() is None
+    state, obs = env.reset_with_mode(Seeding.generator_for("reset", "cpu"), "train")
+    assert tuple(state.shape) == (18,) and torch.equal(obs, env.observation(state))
+    assert env.is_success(obs, torch.zeros(6), obs) is None
+
+
+class _OpenLoop:
+    """A fixed action sequence, through the device path's functional
+    interface; the plan state is the step index."""
+
+    def __init__(self, actions):
+        self.actions = actions
+
+    def functional_plan(self):
+        return lambda t, obs, env_state, model_params=None: (self.actions[t], t + 1)
+
+    def init_plan_state(self, obs_dim, generator):
+        return 0
+
+
+def test_device_episode_matches_jax_rollout():
+    """The slice as a whole on HalfCheetah: a device-path episode under a
+    fixed action sequence against the JAX package's rollout of the same
+    start state and actions (its row engine, padded to a population it
+    batches). Planner decisions are not compared: the PRNG streams differ.
+    Both run the row engine in float32: the gap is about 3e-5 over these 5
+    steps, held at 2e-4."""
+    h = 5
+    kw = dict(exclude_current_positions_from_observation=False, penalise_flipping=True)
+    env = env_from_string("HalfCheetah", **kw)
+    A = np.random.default_rng(7).uniform(-1, 1, (h, 6)).astype(np.float32)
+    Seeding.set_seed(4)
+    rm = RolloutManager(env, {"task_horizon": h, "fuse_on_device": True}, device="cpu")
+    r = rm.sample(_OpenLoop(torch.from_numpy(A)))[0]
+    assert len(r) == h
+    np.testing.assert_array_equal(r["actions"], A)
+
+    s0 = r["observations"][0]  # positions included: the observation is the state
+    P = 64
+    _, next_obs, _, rewards, _ = jax.jit(JaxCheetah(**kw).rollout_batched)(
+        jnp.broadcast_to(jnp.asarray(s0), (P, 18)), jnp.broadcast_to(jnp.asarray(A), (P, h, 6)))
+    np.testing.assert_allclose(r["next_observations"], np.asarray(next_obs[:, 0]), atol=2e-4)
+    np.testing.assert_allclose(r["rewards"], np.asarray(rewards[:, 0]), atol=2e-4)
+    np.testing.assert_array_equal(r["observations"][1:], r["next_observations"][:-1])

@@ -186,12 +186,15 @@ def test_rot_chains_and_per_dof_tables_match_jax():
 
 
 def _step_case(jm, tm, Q, QD, C):
+    """One control step of both row engines (the same algorithm), held at
+    the planar rule: 1e-4 on q, 1e-3 on qd. The gaps at ant3d are about
+    1e-6 on q and 4e-5 on qd, at |qd| up to 12."""
     jq, jqd = jax.jit(lambda a, b, c: jsb.step_batched(jm, a, b, c))(
         jnp.asarray(Q), jnp.asarray(QD), jnp.asarray(C))
     tq, tqd = tsb.step_batched(tm, *map(torch.from_numpy, (Q, QD, C)))
     assert tq.dtype == torch.float32
-    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=2e-3)
-    np.testing.assert_allclose(tqd.numpy(), np.asarray(jqd), atol=8e-2)
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-4)
+    np.testing.assert_allclose(tqd.numpy(), np.asarray(jqd), atol=1e-3)
     return tqd
 
 

@@ -183,4 +183,11 @@ extern "C" int planar_lanes_per_trajectory() { return kLanes; }
                                   stream);                                           \
   }
 
-ICEM_PLANAR_INSTANTIATE(9, 7, 6, 6)  // HalfCheetah
+// One line per planar env shape: a free root is NDOF == NBODY + 2, a hinge
+// root NDOF == NBODY; a model without geoms keeps a placeholder no loop reads.
+ICEM_PLANAR_INSTANTIATE(9, 7, 6, 6)     // HalfCheetah, the dm-suite cheetah
+ICEM_PLANAR_INSTANTIATE(6, 4, 3, 3)     // Hopper
+ICEM_PLANAR_INSTANTIATE(2, 2, 0, 2)     // Reacher's two-link arm: hinge root, no geoms
+ICEM_PLANAR_INSTANTIATE(7, 5, 6, 4)     // PlanarAnt
+ICEM_PLANAR_INSTANTIATE(12, 10, 10, 9)  // PlanarHumanoid(Standup): the motor speed line
+ICEM_PLANAR_INSTANTIATE(8, 6, 0, 5)     // the swimmer: fluid drag, no geoms

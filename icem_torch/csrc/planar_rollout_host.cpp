@@ -43,6 +43,10 @@ int run(const void* params, const float* q0, long long ldq, const float* qd0, lo
                                descending);                                          \
   }
 
-ICEM_PLANAR_HOST_INSTANTIATE(9, 7, 6, 6)  // HalfCheetah (the device's shape)
-ICEM_PLANAR_HOST_INSTANTIATE(2, 2, 0, 2)  // two-link arm: hinge root
-ICEM_PLANAR_HOST_INSTANTIATE(8, 6, 0, 5)  // six-link swimmer: fluid drag
+// the device's shapes (planar_rollout.cu)
+ICEM_PLANAR_HOST_INSTANTIATE(9, 7, 6, 6)     // HalfCheetah
+ICEM_PLANAR_HOST_INSTANTIATE(6, 4, 3, 3)     // Hopper
+ICEM_PLANAR_HOST_INSTANTIATE(2, 2, 0, 2)     // two-link arm: hinge root
+ICEM_PLANAR_HOST_INSTANTIATE(7, 5, 6, 4)     // PlanarAnt
+ICEM_PLANAR_HOST_INSTANTIATE(12, 10, 10, 9)  // PlanarHumanoid: the motor speed line
+ICEM_PLANAR_HOST_INSTANTIATE(8, 6, 0, 5)     // six-link swimmer: fluid drag

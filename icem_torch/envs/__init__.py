@@ -8,10 +8,30 @@ ported so far; any other name raises ``ImportError`` naming the known ones.
 from importlib import import_module
 
 _ENV_REGISTRY = {
+    # classic control
+    "DiscreteMountainCar": ("icem_torch.envs.classic", "DiscreteActionMountainCar"),
+    "DiscreteCartPole": ("icem_torch.envs.classic", "DiscreteActionCartPole"),
+    "ContinuousMountainCar": ("icem_torch.envs.classic", "ContinuousMountainCar"),
+    "ContinuousPendulum": ("icem_torch.envs.classic", "ContinuousPendulum"),
+    "ContinuousLunarLander": ("icem_torch.envs.lander", "ContinuousLunarLander"),
+    # locomotion
     "HalfCheetah": ("icem_torch.envs.cheetah", "HalfCheetah"),
+    "Hopper": ("icem_torch.envs.hopper", "Hopper"),
+    "Reacher": ("icem_torch.envs.reacher", "Reacher"),
     "Ant": ("icem_torch.envs.ant3d", "Ant3D"),
+    "PlanarAnt": ("icem_torch.envs.ant", "Ant"),
     "HumanoidStandup": ("icem_torch.envs.humanoid3d", "HumanoidStandup3D"),
     "Humanoid": ("icem_torch.envs.humanoid3d", "Humanoid3D"),
+    "PlanarHumanoidStandup": ("icem_torch.envs.humanoid", "HumanoidStandup"),
+    "PlanarHumanoid": ("icem_torch.envs.humanoid", "Humanoid"),
+    # dm-suite flavors
+    "cartpole": ("icem_torch.envs.dm_suite", "CartPoleSuite"),
+    "reacher": ("icem_torch.envs.dm_suite", "ReacherSuite"),
+    "restricted_reacher": ("icem_torch.envs.dm_suite", "RestrictedReacherSuite"),
+    "point_mass": ("icem_torch.envs.dm_suite", "DoubleIntSuite"),
+    "restricted_point_mass": ("icem_torch.envs.dm_suite", "RestrictedDoubleIntSuite"),
+    "cheetah": ("icem_torch.envs.dm_suite", "HalfCheetahSuite"),
+    "swimmer": ("icem_torch.envs.dm_suite", "SwimmerSuite"),
 }
 
 

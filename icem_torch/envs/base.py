@@ -6,6 +6,11 @@ that takes observations or states works over any leading batch dimensions,
 so a population is one call. The env holds no device: its methods work on
 the device of the tensors they are given, and ``init_state`` on the device
 of its generator.
+
+Action repeat (``action_repeat > 1``) wraps ``step`` and ``step_batched`` on
+the instance, as the JAX constructor does, so every consumer (the episode
+loops, the ground-truth model) sees the macro step; the raw single steps stay
+reachable as ``_raw_step`` and ``_raw_step_batched``.
 """
 
 from __future__ import annotations
@@ -15,6 +20,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+def uniform(generator: torch.Generator, shape, low: float, high: float):
+    """A uniform draw in [low, high) on the generator's device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return low + u * (high - low)
 
 
 @dataclass(frozen=True)
@@ -51,6 +62,65 @@ class BoxSpace:
         return torch.clamp(x, low, high)
 
 
+@dataclass(frozen=True)
+class DiscreteSpace:
+    """Discrete action set exposed through a continuous embedding: n choices
+    in [-1, 1], which an env rounds back to an index inside ``step``."""
+
+    n: int
+
+    @property
+    def low(self):
+        return np.array([-1.0], np.float32)
+
+    @property
+    def high(self):
+        return np.array([1.0], np.float32)
+
+    @property
+    def shape(self):
+        return (1,)
+
+    @property
+    def dim(self) -> int:
+        return 1
+
+    def sample(self, generator: torch.Generator):
+        idx = torch.randint(0, self.n, (1,), generator=generator, device=generator.device)
+        return self.embed(idx)
+
+    def embed(self, index):
+        """index in [0, n) -> continuous embedding in [-1, 1]."""
+        return (index.to(torch.float32) + 0.5) * 2.0 / self.n - 1.0
+
+    def index(self, action):
+        """continuous action in [-1, 1] -> nearest index in [0, n)."""
+        idx = torch.floor((action[..., 0] + 1.0) * 0.5 * self.n)
+        return torch.clamp(idx, 0, self.n - 1).to(torch.int32)
+
+    def clip(self, x):
+        return torch.clamp(x, -1.0, 1.0)
+
+
+def _repeated(raw_step, n: int):
+    """``raw_step`` taken n times under the same action, rewards summed. Once
+    a sub-step reports done, later sub-steps add no reward and leave the
+    state and observation where they are (the alive mask)."""
+
+    def step(state, action):
+        state, obs, reward, done = raw_step(state, action)
+        for _ in range(n - 1):
+            new_state, new_obs, r, d = raw_step(state, action)
+            alive = 1.0 - done
+            state = state + alive[..., None] * (new_state - state)
+            obs = obs + alive[..., None] * (new_obs - obs)
+            reward = reward + alive * r
+            done = torch.maximum(done, d)
+        return state, obs, reward, done
+
+    return step
+
+
 class Env:
     """Environment over explicit state tensors.
 
@@ -60,6 +130,9 @@ class Env:
 
     name: str = "env"
     supports_state_from_obs: bool = True
+    # the default cost's masked L2 distance to a goal state
+    goal_state: Optional[np.ndarray] = None
+    goal_mask: Optional[np.ndarray] = None
     dt: float = 0.05
 
     observation_space: BoxSpace
@@ -72,6 +145,11 @@ class Env:
         self.action_repeat = int(action_repeat)
         if self.action_repeat < 1:
             raise ValueError(f"action_repeat must be >= 1, got {action_repeat}")
+        self._raw_step = type(self).step.__get__(self)
+        self._raw_step_batched = type(self).step_batched.__get__(self)
+        if self.action_repeat > 1:
+            self.step = _repeated(self._raw_step, self.action_repeat)
+            self.step_batched = _repeated(self._raw_step_batched, self.action_repeat)
 
     # -- core dynamics ----------------------------------------------------
     def init_state(self, generator: torch.Generator, mode: str = "train"):
@@ -89,12 +167,29 @@ class Env:
         raise NotImplementedError
 
     def step_batched(self, states, actions):
-        """Population step over a leading axis."""
-        raise NotImplementedError
+        """Population step over a leading axis. The analytic envs write their
+        raw step over leading batch dimensions, so by default it is that;
+        envs with a kernel override this."""
+        return self._raw_step(states, actions)
 
     # -- costs ------------------------------------------------------------
     def cost_fn(self, observation, action, next_obs):
-        raise NotImplementedError
+        """Default: the masked L2 distance to ``goal_state``."""
+        if self.goal_state is None:
+            raise NotImplementedError(f"{self.name} defines no goal_state; override cost_fn")
+        goal, mask = self._constants(observation.device, self.goal_state, self.goal_mask)
+        return torch.linalg.vector_norm((observation - goal) * mask, dim=-1)
+
+    def _constants(self, device, *arrays):
+        """numpy constants of the env as float32 tensors on ``device``, made
+        once per device: a copy to the card inside a step would make the host
+        wait for it at every step."""
+        cache = self.__dict__.setdefault("_constant_cache", {})
+        key = (str(device),) + tuple(id(a) for a in arrays)
+        if key not in cache:
+            cache[key] = (arrays, tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                                        for a in arrays))
+        return cache[key][1]
 
     def state_from_observation(self, observation):
         """Reconstruct a dynamics state from an observation (GT-model entry)."""

@@ -79,3 +79,8 @@ class PlanarModel:
     def dof_of_body(self, b: int) -> int:
         """The hinge dof index of body b (b > 0 for free_root models)."""
         return (2 + b) if self.free_root else b
+
+
+def chain_link_inertia(mass: float, length: float) -> float:
+    """Thin-rod moment of inertia about the COM."""
+    return mass * length**2 / 12.0

@@ -34,8 +34,9 @@ def rollout_open_loop(predict_fn, model_state, obs, actions) -> TrajectoryBatch:
     """Roll a population of open-loop action sequences through a model.
 
     predict_fn: (model_state [p, ...], obs [p, obs_dim], action [p, act_dim])
-                -> (model_state, next_obs, reward), or one with a
-                whole-horizon ``.rollout(model_states, actions)``.
+                -> (model_state, next_obs, reward), optionally with a
+                whole-horizon ``.rollout(model_states, actions)`` that
+                returns the sequences or None to decline.
     model_state: unbatched (broadcast to p) or with a leading p axis.
     obs: [obs_dim] or [p, obs_dim] start observation(s).
     actions: [p, h, act_dim] action sequences.
@@ -47,10 +48,12 @@ def rollout_open_loop(predict_fn, model_state, obs, actions) -> TrajectoryBatch:
         obs = obs.expand((p,) + tuple(obs.shape))
         model_state = model_state.expand((p,) + tuple(model_state.shape))
 
-    # whole-horizon fast path (planar GT envs)
+    # whole-horizon fast path (the planar and spatial GT envs); it returns
+    # None where it declines (action repeat), and the step loop runs instead
     whole = getattr(predict_fn, "rollout", None)
-    if whole is not None:
-        obs_seq, next_obs_seq, actions_tm, rewards, final_ms = whole(model_state, actions)
+    out = None if whole is None else whole(model_state, actions)
+    if out is not None:
+        obs_seq, next_obs_seq, actions_tm, rewards, final_ms = out
         return TrajectoryBatch(
             observations=obs_seq, next_observations=next_obs_seq,
             actions=actions_tm, rewards=rewards, final_model_state=final_ms)

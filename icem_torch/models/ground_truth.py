@@ -1,9 +1,10 @@
 """Ground-truth forward models backed by the env dynamics.
 
 Counterpart of ``icem_tpu/models/ground_truth.py``: the model state is the
-env state tensor, one-step prediction is ``env.step_batched``, and a whole
-open-loop rollout is ``env.rollout_batched`` (one kernel launch for planar
-envs). ``ParallelGroundTruthModel`` is an alias so configs that name it
+env state tensor, one-step prediction is ``env.step_batched`` (the repeated
+step where the env repeats its actions), and a whole open-loop rollout is
+``env.rollout_batched`` (one kernel launch for the planar and spatial envs),
+where the env has one and does not decline. ``ParallelGroundTruthModel`` is an alias so configs that name it
 resolve unchanged; its ``num_parallel`` is accepted and unused.
 """
 

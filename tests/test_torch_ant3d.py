@@ -123,6 +123,6 @@ def test_registry_resolves_the_ported_envs():
     for name in ("Humanoid", "HumanoidStandup"):
         assert env_from_string(name).name == name
     with pytest.raises(ImportError, match="known: .*'Ant'"):
-        env_from_string("Hopper")
+        env_from_string("Door")
     register_env("MyAnt", "icem_torch.envs.ant3d", "Ant3D")
     assert isinstance(env_from_string("MyAnt"), Ant3D)

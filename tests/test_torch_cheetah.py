@@ -112,6 +112,7 @@ def test_unported_options_raise():
     env.model = dataclasses.replace(env.model, energy_valve=True)
     with pytest.raises(NotImplementedError, match="energy valve"):
         env.step(torch.zeros(18), torch.zeros(6))
+    # action repeat is ported: the whole-horizon path declines it, as the
+    # JAX one does, and the caller steps the repeated step
     repeated = HalfCheetah(action_repeat=2, **KW)
-    with pytest.raises(NotImplementedError, match="action_repeat"):
-        repeated.rollout_batched(torch.zeros(4, 18), torch.zeros(4, 3, 6))
+    assert repeated.rollout_batched(torch.zeros(4, 18), torch.zeros(4, 3, 6)) is None

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from icem_torch.envs import env_from_string
 from icem_torch.envs.ant3d import Ant3D
 from icem_torch.envs.cheetah import HalfCheetah, make_cheetah_model
 from icem_torch.envs.humanoid3d import HumanoidStandup3D
@@ -78,13 +79,60 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
         pr.rollout_planar(model, Q.double(), QD.double(), A)
     with pytest.raises(ValueError, match="on cpu"):
         pr.rollout_planar(model, Q, QD.cpu(), A)
-    arm = PlanarModel(parent=(-1, 0), anchor=np.zeros((2, 2), np.float32),
-                      com=np.zeros((2, 2), np.float32), mass=np.ones(2, np.float32),
-                      inertia=np.ones(2, np.float32), free_root=False,
-                      actuator_dof=(0, 1), gear=np.ones(2, np.float32))
+    # a three-link arm: no env has this shape, so the kernel has no instantiation
+    arm = PlanarModel(parent=(-1, 0, 1), anchor=np.zeros((3, 2), np.float32),
+                      com=np.zeros((3, 2), np.float32), mass=np.ones(3, np.float32),
+                      inertia=np.ones(3, np.float32), free_root=False,
+                      actuator_dof=(0, 1, 2), gear=np.ones(3, np.float32))
     with pytest.raises(ValueError, match="not instantiated"):
-        pr.rollout_planar(arm, torch.zeros(8, 2, device=cuda), torch.zeros(8, 2, device=cuda),
-                          torch.zeros(8, 2, 2, device=cuda))
+        pr.rollout_planar(arm, torch.zeros(8, 3, device=cuda), torch.zeros(8, 3, device=cuda),
+                          torch.zeros(8, 2, 3, device=cuda))
+
+
+# the other planar shapes: one env each, through the registry
+PLANAR = {"Hopper": dict(exclude_current_positions_from_observation=False),
+          "Reacher": {}, "PlanarAnt": dict(exclude_current_positions_from_observation=False),
+          "PlanarHumanoidStandup": {}, "swimmer": {}, "cheetah": {}}
+
+
+def _planar_inputs(env, P, h, device, seed=0):
+    """States near the env's start distribution as the env passes them
+    (column slices of one state tensor), and uniform actions."""
+    model = env.model
+    n, na = model.ndof, len(model.actuator_dof)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    S = torch.stack([env.init_state(gen) for _ in range(8)])[torch.arange(P) % 8]
+    S[:, :n] += 0.05 * torch.randn(P, n, generator=gen, device=device)
+    S[:, n:2 * n] += 0.1 * torch.randn(P, n, generator=gen, device=device)
+    A = torch.rand(P, h, na, generator=gen, device=device) * 2 - 1
+    return S[:, :n], S[:, n:2 * n], A
+
+
+@pytest.mark.parametrize("name", list(PLANAR))
+@pytest.mark.parametrize("P", [1, 127])
+def test_every_planar_shape_matches_plain_version(cuda, name, P):
+    env = env_from_string(name, **PLANAR[name])
+    Q, QD, A = _planar_inputs(env, P, 2, cuda)
+    before = pr.LAUNCHES
+    qs, qds = pr.rollout_planar(env.model, Q, QD, A)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES == before + 1
+    rq, _ = pr.rollout_planar_reference(env.model, Q, QD, A)
+    assert bool(torch.isfinite(qs).all() and torch.isfinite(qds).all())
+    torch.testing.assert_close(qs, rq, atol=1e-3, rtol=0)
+    # the rows at the state's stride give the bits of contiguous copies
+    qs_c, qds_c = pr.rollout_planar(env.model, Q.contiguous(), QD.contiguous(), A)
+    assert torch.equal(qs, qs_c) and torch.equal(qds, qds_c)
+
+
+@pytest.mark.parametrize("name", list(PLANAR))
+def test_every_planar_env_step_is_one_launch(cuda, name):
+    env = env_from_string(name, **PLANAR[name])
+    state = env.init_state(torch.Generator(device=cuda).manual_seed(0))
+    before = pr.LAUNCHES
+    new_state, obs, reward, done = env.step(state, torch.zeros(env.action_dim, device=cuda))
+    assert pr.LAUNCHES == before + 1
+    assert new_state.device.type == "cuda" and tuple(obs.shape) == (env.obs_dim,)
 
 
 # ---------------------------------------------------------------------------

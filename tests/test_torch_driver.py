@@ -216,3 +216,31 @@ def test_device_episode_matches_jax_rollout():
     np.testing.assert_allclose(r["next_observations"], np.asarray(next_obs[:, 0]), atol=2e-4)
     np.testing.assert_allclose(r["rewards"], np.asarray(rewards[:, 0]), atol=2e-4)
     np.testing.assert_array_equal(r["observations"][1:], r["next_observations"][:-1])
+
+
+# the shipped settings of the planar and analytic envs, at a tiny size
+SHIPPED = {
+    "hopper": "hopper/i-cem-blitz.json",                      # terminating, B1 <6, 4, 3, 3>
+    "pendulum": "pendulum/i-cem-blitz.json",                  # analytic
+    "mountain_car": "mountain_car/i-cem-best.json",           # analytic, "best" cost
+    "cartpole_swingup_gt": "planet/cartpole_swingup_gt.json",  # action repeat 8, scanned loop
+}
+
+
+@pytest.mark.parametrize("name", list(SHIPPED))
+def test_shipped_planar_and_analytic_settings_run_on_the_cpu(name, tmp_path):
+    md = str(tmp_path / name)
+    params = apply_overrides(resolve_settings(str(ROOT / "settings" / SHIPPED[name])), TINY + [
+        "controller_params.action_sampler_params.elites_size=3",
+        "controller_params.action_sampler_params.opt_iterations=2", f"model_dir={md}"])
+    info = tmain.run(params, device="cpu")
+    assert info["step"] == [0, 1]
+    for key in METRICS:
+        assert len(info[key]) == 2 and all(np.isfinite(info[key])), key
+    latest = os.path.join(md, "checkpoints_latest")
+    assert os.path.islink(latest) and os.readlink(latest) == "checkpoints_001"
+    env = env_from_string(params.env, **params.env_params)
+    if name == "cartpole_swingup_gt":
+        assert env.action_repeat == 8 and env.get_fps() == pytest.approx(12.5)
+    if name == "hopper":
+        assert env.model.ndof == 6 and env.obs_dim == 12

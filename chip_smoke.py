@@ -44,8 +44,8 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     experiment driver launches on the shipped i-cem-blitz settings, and
     times them there: the planar kernel at P = 43, 32 and 25 (h = 30), the
     spatial one at Ant's and Humanoid3D's P = 131, h = 12 and
-    HumanoidStandup3D's P = 43, h = 30 (its plain version over the first 12
-    steps);
+    HumanoidStandup3D's P = 43, h = 30 (the spatial plain versions over the
+    first 10 steps);
 11. runs the driver, ``icem_torch.main.run``, on
     settings/halfcheetah_running/i-cem-blitz.json (1 episode of 1,000
     steps), settings/ant/i-cem-blitz.json and humanoid/i-cem-blitz.json
@@ -69,9 +69,23 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     PlanarHumanoidStandup and the swimmer at pop 2,048, h = 30;
 15. runs the driver on settings/hopper/i-cem-blitz.json (1,000 steps, 5
     launches a step), pendulum/i-cem-blitz.json, mountain_car/i-cem-best.json
-    (1 of its 3 iterations) and planet/cartpole_swingup_gt.json (action
-    repeat 8; episodes cut to 20 steps), the last three analytic envs
-    without a kernel, as in step 11.
+    (1 of its 3 iterations, 120 of its 200 steps) and
+    planet/cartpole_swingup_gt.json (action repeat 8; 1 of 2 iterations, 10
+    of 125 steps), the last three analytic envs without a kernel, as in
+    step 11;
+16. holds both kernels against their plain versions at the shapes the other
+    controllers launch: vanilla CEM as settings/halfcheetah_running/
+    cem-std.json ships it (P = 97, h = 30) and random shooting at the JAX
+    package's defaults (P = 40, h = 30), on HalfCheetah and Ant3D, and the
+    repeated Ant3D's sub-steps (P = 64, h = 1), and times them there;
+17. runs ``MpcCemStd.get_action`` and ``MpcRandom.get_action`` through the
+    registry on HalfCheetah and Ant3D, and vanilla CEM on an Ant3D with
+    action repeat 2 (every sub-step an h = 1 launch);
+18. runs the driver on settings/halfcheetah_running/cem-std.json (1,000
+    steps), fetch_reach, fpp, door and relocate/i-cem-blitz.json as shipped
+    (returns beside success rates), and HalfCheetah with a ``random``
+    initial phase (200-step episodes), as in step 11; the host waits of
+    every run are printed by source line.
 
 The MpcICem phases build their controllers from the settings files as the
 driver does (``icem_torch.main.get_controllers``).
@@ -1188,58 +1202,202 @@ def phase_spatial_profile(device, envs):
 
 
 # ---------------------------------------------------------------------------
+# the other controllers: vanilla CEM and random shooting through both kernels
+
+# (P, h) of the other controllers' planner launches: vanilla CEM as
+# settings/halfcheetah_running/cem-std.json ships it (3 iterations at P = 97)
+# and random shooting at the JAX package's defaults (one launch at P = 40)
+CEM_STD_SHAPE = (97, 30)
+RANDOM_SHAPE = (40, 30)
+
+
+def other_controllers(env, device):
+    """(registry name, controller, planner launches per step) of vanilla CEM
+    and random shooting on ``env``, built through the registry as the driver
+    builds them: MpcCemStd with cem-std.json's controller parameters,
+    MpcRandom with the JAX package's defaults."""
+    from icem_torch.main import get_controllers
+    from icem_torch.models.ground_truth import GroundTruthModel
+    from icem_torch.runtime.config import apply_overrides, resolve_settings
+
+    cem = apply_overrides(resolve_settings("settings/halfcheetah_running/cem-std.json"),
+                          [f"controller_params.seed={SEED + 9}"])
+    rnd = apply_overrides(cem, ["controller=mpc-random", "controller_params={}",
+                                f"controller_params.seed={SEED + 10}"])
+    model = GroundTruthModel(env=env)
+    ctrl_cem = get_controllers(cem, env, model, device)[1]
+    ctrl_rnd = get_controllers(rnd, env, model, device)[1]
+    check((ctrl_cem.cfg.num_simulated_trajectories, ctrl_cem.cfg.horizon) == CEM_STD_SHAPE
+          and (ctrl_rnd.num_sim_traj, ctrl_rnd.horizon) == RANDOM_SHAPE,
+          f"the controllers resolved to {ctrl_cem.cfg} and {vars(ctrl_rnd)}")
+    return [("mpc-cem-std", ctrl_cem, ctrl_cem.cfg.opt_iterations), ("mpc-random", ctrl_rnd, 1)]
+
+
+def phase_other_controllers(device, steps: int = 5):
+    """``MpcCemStd.get_action`` and ``MpcRandom.get_action`` on HalfCheetah
+    (kernel B1) and Ant3D (kernel B2), and vanilla CEM on an Ant3D that
+    repeats its actions twice (no whole-horizon rollout: every sub-step is
+    an h = 1 launch). Each: finite actions in the bounds and the launches
+    per step (counts set to 0 just before, read just after). Returns the
+    launches of each kernel."""
+    from icem_torch.envs import env_from_string
+    from icem_torch.envs.ant3d import Ant3D
+    from icem_torch.main import get_controllers
+    from icem_torch.models.ground_truth import GroundTruthModel
+    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime.config import apply_overrides, resolve_settings
+
+    cheetah_settings = resolve_settings("settings/halfcheetah_running/cem-std.json")
+    cheetah = env_from_string(cheetah_settings.env, **cheetah_settings.env_params)
+    ant = Ant3D(exclude_current_positions_from_observation=False)
+    counters = {"planar": planar_rollout, "spatial": spatial_rollout}
+    totals = {k: 0 for k in counters}
+
+    def drive(env, name, ctrl, per_step, kernel, n_steps):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 11)
+        s = env.init_state(gen)
+        o = env.observation(s)
+        ctrl.beginning_of_rollout(observation=o, state=s)
+        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+        launches, step_ms = [], []
+        for _ in range(n_steps):
+            before = counters[kernel].LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = ctrl.get_action(o, s)
+            s, o, _, _ = env.step(s, torch.as_tensor(a, device=device))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(counters[kernel].LAUNCHES - before)
+            check(a.shape == (env.action_dim,) and bool(np.all(np.isfinite(a)))
+                  and bool(np.all(np.abs(a) <= 1.0)), f"{name} on {env.name}: bad action {a}")
+        for k in totals:
+            totals[k] += counters[k].LAUNCHES
+        other = sum(m.LAUNCHES for k, m in counters.items() if k != kernel)
+        check(all(n == per_step for n in launches) and other == 0,
+              f"{name} on {env.name}: launches per step {launches} (expected {per_step}), "
+              f"{other} of the other kernel")
+        check(bool(torch.isfinite(s).all()), f"{name} on {env.name}: state is not finite")
+        log(f"[controllers] {name}.get_action on {env.name} (repeat {env.action_repeat}): "
+            f"{n_steps} steps, {per_step} {kernel} launches per step; ms per step with the "
+            f"real step, host clock after synchronize: "
+            + " ".join(f"{t:.2f}" for t in step_ms)
+            + f"; last expected cost {float(ctrl.last_expected_cost):.3f}")
+
+    for env, kernel in ((cheetah, "planar"), (ant, "spatial")):
+        for name, ctrl, iters in other_controllers(env, device):
+            drive(env, name, ctrl, iters + 1, kernel, steps)
+
+    # action repeat on the spatial env: the repeated step is two raw steps
+    # on the card, and the planner steps it one sub-step at a time
+    repeated = Ant3D(action_repeat=2, exclude_current_positions_from_observation=False)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 12)
+    s = repeated.init_state(gen)
+    a = torch.rand(8, generator=gen, device=device) * 2 - 1
+    s2, o2, r2, _ = repeated.step(s, a)
+    s1, _, r1, _ = ant.step(s, a)
+    s1, o1, r1b, _ = ant.step(s1, a)
+    err = float((s2 - s1).abs().max())
+    check(err <= 1e-5 and float((r2 - r1 - r1b).abs()) <= 1e-4,
+          f"Ant3D with action repeat 2 differs from two raw steps by {err:.3e}")
+    cem = apply_overrides(resolve_settings("settings/halfcheetah_running/cem-std.json"), [
+        "controller_params.num_simulated_trajectories=64", "controller_params.horizon=10",
+        f"controller_params.seed={SEED + 13}"])
+    ctrl = get_controllers(cem, repeated, GroundTruthModel(env=repeated), device)[1]
+    n_iter = ctrl.cfg.opt_iterations
+    drive(repeated, "mpc-cem-std", ctrl, 2 * (n_iter * ctrl.cfg.horizon + 1), "spatial", 2)
+    log(f"[controllers] Ant3D action repeat 2: the repeated step is two raw steps on the card "
+        f"(max |ds| {err:.3e}); pop 64 h 10: {n_iter} x 10 x 2 h = 1 launches a plan step")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # the experiment driver: python -m icem_torch.main's run() on shipped settings
 
 # (settings, overrides, kernel the run launches or None, control steps of
-# the whole run, launches per step, the least return it must reach or None
-# for finite only, the index of the root's pitch angle in the observation or
-# None, the steps of the episode the idle share is taken over)
+# the whole run, kernel launches of the whole run, the least return it must
+# reach or None for finite only, the index of the root's pitch angle in the
+# observation or None, the steps of the episode the idle share is taken over)
 DRIVER_RUNS = (
     # past +-pi/2 the flip penalty of the cost is a constant: the pitch
     # angle tells a running cheetah from a rolling one
-    ("halfcheetah_running/i-cem-blitz", (), "planar", 1000, 4, 3000.0, 1, 50),
-    ("ant/i-cem-blitz", (), "spatial", 300, 4, 300.0, None, 50),
-    ("humanoid/i-cem-blitz", (), "spatial", 300, 4, None, None, 50),
+    ("halfcheetah_running/i-cem-blitz", (), "planar", 1000, 4 * 1000, 3000.0, 1, 50),
+    ("ant/i-cem-blitz", (), "spatial", 300, 4 * 300, 300.0, None, 50),
+    ("humanoid/i-cem-blitz", (), "spatial", 300, 4 * 300, None, None, 50),
     # 5 episodes of 210 steps exceed SpatialEnv.fused_episode_step_limit
     # (1,000): the rollout manager runs them in 2 chunks of 105 steps
     ("humanoid_standup/i-cem-blitz", ("rollout_params.task_horizon=210",), "spatial",
-     5 * 210, 4, None, None, 50),
+     5 * 210, 4 * 5 * 210, None, None, 50),
     # a terminating env: 4 planner launches and the real step's, frozen
     # after termination. Its return is held finite only: whether the hopper
     # falls in its first steps depends on the seed in both packages (the
     # JAX package on the CPU with these settings: seed 0 returns 2.39, seeds
     # 1-3 over 100 steps 95.34, 96.08, 0.45; PERF.md §6)
-    ("hopper/i-cem-blitz", (), "planar", 1000, 5, None, None, 20),
+    ("hopper/i-cem-blitz", (), "planar", 1000, 5 * 1000, None, None, 20),
     # analytic envs, no kernel: the pendulum's 3 iterations of 120 steps,
     # held to its own solve threshold (avg_return_required_to_solve)
     ("pendulum/i-cem-blitz", (), None, 3 * 120, 0, -300.0, None, 10),
-    # 200-240 ms a control step (600 small steps of the env a plan step):
-    # 1 of the 3 iterations, whose car reaches the goal within its 200 steps
-    ("mountain_car/i-cem-best", ("training_iterations=1",), None, 200, 0, 90.0, None, 5),
-    # action repeat 8 and the scanned loop, 740-820 ms a control step (960
-    # raw steps a plan step): the episodes are cut from 125 to 20 steps
-    ("planet/cartpole_swingup_gt", ("rollout_params.task_horizon=20",), None, 2 * 20, 0,
-     None, None, 3),
+    # 180-240 ms a control step (600 small steps of the env a plan step):
+    # 1 of the 3 iterations, its episode cut from 200 to 120 steps (the car
+    # reaches the goal at step 106 with seed 0; a device episode plans on
+    # after the end, frozen)
+    ("mountain_car/i-cem-best", ("training_iterations=1", "rollout_params.task_horizon=120"),
+     None, 120, 0, 90.0, None, 3),
+    # action repeat 8 and the scanned loop, 590-820 ms a control step (960
+    # raw steps a plan step): 1 of the 2 iterations, its episode cut from
+    # 125 to 10 steps, to keep the script near 600 s
+    ("planet/cartpole_swingup_gt", ("rollout_params.task_horizon=10", "training_iterations=1"),
+     None, 10, 0, None, None, 2),
+    # vanilla CEM, the paper's baseline, as shipped: pop 97, h 30, 3
+    # iterations at P = 97 and the real step (the JAX package's v5e runs
+    # return 4,940-4,989: results/QUALITY_r05.json)
+    ("halfcheetah_running/cem-std", (), "planar", 1000, 4 * 1000, 2000.0, 1, 50),
+    # the goal-conditioned analytic envs as shipped, no kernel; their
+    # success rates are printed beside the returns
+    ("fetch_reach/i-cem-blitz", (), None, 50, 0, None, None, 10),
+    ("fpp/i-cem-blitz", (), None, 50, 0, None, None, 5),
+    ("door/i-cem-blitz", (), None, 200, 0, None, None, 5),
+    ("relocate/i-cem-blitz", (), None, 200, 0, None, None, 5),
+    # a random initial phase (the learned-model settings' first iteration)
+    # in front of the HalfCheetah planner, 200-step episodes: the random
+    # policy launches only the real step
+    ("halfcheetah_running/i-cem-blitz", ("initial_controller=random",
+                                         "initial_number_of_rollouts=1",
+                                         "rollout_params.task_horizon=200"), "planar",
+     2 * 200, 200 + 4 * 200, 0.0, None, 20),
 )
 
 
 def phase_driver_times(device, planar_shapes, spatial_cases):
     """ms per launch of both kernels at the shapes the driver launches,
-    CUDA events over 20 launches, on strided rows as the env passes them.
-    ``spatial_cases``: (env, P, h)."""
+    CUDA events over 20 launches, on strided rows as the env passes them,
+    each beside its bound. ``spatial_cases``: (env, P, h)."""
     from icem_torch.envs.cheetah import HalfCheetah
     from icem_torch.ops.planar_rollout import rollout_planar
-    from icem_torch.ops.spatial_rollout import rollout_spatial
+    from icem_torch.ops.spatial_rollout import rollout_spatial, rollout_spatial_reference
+
+    def bound(model, P, h, ops):
+        bound_ms, bound_by = rollout_bound_ms(ops, P, h, model.ndof, len(model.actuator_dof))
+        return f"bound {bound_ms:.4g} ms ({bound_by})"
 
     model = HalfCheetah().model
+    ops = plain_ops_per_trajectory_step(model, device)
     for P, h in planar_shapes:
         Q, QD, A = _seeded_rollout_inputs(model, P, h, device, SEED)
         ms = cuda_ms(lambda: rollout_planar(model, Q, QD, A), reps=20, warmup=2)
-        log(f"[times] driver shape: planar kernel, HalfCheetah P={P} h={h}: {ms:.4f} ms per launch")
+        log(f"[times] driver shape: planar kernel, HalfCheetah P={P} h={h}: {ms:.4f} ms per "
+            f"launch; {bound(model, P, h, ops)}")
+    spatial_ops = {}
     for env, P, h in spatial_cases:
+        if env.name not in spatial_ops:
+            spatial_ops[env.name] = plain_ops_per_trajectory_step(env.model, device,
+                                                                  rollout_spatial_reference)
         Q, QD, A = _spatial_rollout_inputs(env, P, h, device, SEED + 20)
         ms = cuda_ms(lambda: rollout_spatial(env.model, Q, QD, A), reps=20, warmup=2)
-        log(f"[times] driver shape: spatial kernel, {env.name} P={P} h={h}: {ms:.4f} ms per launch")
+        log(f"[times] driver shape: spatial kernel, {env.name} P={P} h={h}: {ms:.4f} ms per "
+            f"launch; {bound(env.model, P, h, spatial_ops[env.name])}")
 
 
 def phase_driver(device, workdir: str):
@@ -1262,7 +1420,8 @@ def phase_driver(device, workdir: str):
     @contextlib.contextmanager
     def host_waits():
         """Counts the operations that make the host wait for the card, by
-        torch.cuda.set_sync_debug_mode("warn"): each one warns."""
+        torch.cuda.set_sync_debug_mode("warn"): each one warns. Yields a list
+        that receives the count and the count per source line."""
         counted = []
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -1271,17 +1430,22 @@ def phase_driver(device, workdir: str):
                 yield counted
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        counted.append(sum("synchroniz" in str(w.message) for w in caught))
+        waits = [w for w in caught if "synchroniz" in str(w.message)]
+        counted.append(len(waits))
+        counted.append(collections.Counter(
+            f"{os.path.relpath(w.filename)}:{w.lineno}" for w in waits))
 
     with host_waits() as probe:  # the counter sees a read-back
         float(torch.ones((), device=device))
     check(probe[0] >= 1, "set_sync_debug_mode('warn') counted no host wait for .item()")
 
     counters = {"planar": planar_rollout, "spatial": spatial_rollout}
-    for name, overrides, kernel, steps, per_step, least, pitch, idle_steps in DRIVER_RUNS:
+    totals = {k: 0 for k in counters}
+    for i, (name, overrides, kernel, steps, expected, least, pitch,
+            idle_steps) in enumerate(DRIVER_RUNS):
         tag = name.split("/")[0]
         params = apply_overrides(resolve_settings(f"settings/{name}.json"), [
-            *overrides, f"model_dir={os.path.join(workdir, tag)}", f"seed={SEED}"])
+            *overrides, f"model_dir={os.path.join(workdir, f'{i}_{tag}')}", f"seed={SEED}"])
         planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
         with host_waits() as waits:
             t0 = time.perf_counter()
@@ -1289,20 +1453,28 @@ def phase_driver(device, workdir: str):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = {k: m.LAUNCHES for k, m in counters.items()}
+        for k in totals:
+            totals[k] += launches[k]
         syncs = waits[0]
         ret = info["train_mean_return"][-1]
-        check(steps == params.training_iterations * params.number_of_rollouts
+        initial = params.initial_number_of_rollouts if params.initial_controller != "none" else 0
+        check(steps == (params.training_iterations * params.number_of_rollouts + initial)
               * params.rollout_params.task_horizon, f"{name}: the run is not {steps} steps")
         exec_s = float(np.sum(info["train_exec_time"]))
         ms_step = exec_s * 1e3 / steps
+        success = ""
+        if "train_mean_success" in info:
+            success = (f"; success rate of the last step, per iteration "
+                       f"{', '.join(f'{x:.2f}' for x in info['train_mean_success'])}")
         log(f"[driver] settings/{name}.json{' ' + ' '.join(overrides) if overrides else ''}: "
-            f"{params.training_iterations} x {params.number_of_rollouts} x "
+            f"{initial} + {params.training_iterations} x {params.number_of_rollouts} x "
             f"{params.rollout_params.task_horizon} steps; last iteration's return "
             f"{ret:.2f} (std {info['train_std_return'][-1]:.2f}; per iteration "
             f"{', '.join(f'{r:.2f}' for r in info['train_mean_return'])}); episodes {exec_s:.3f} s, "
             f"{ms_step:.3f} ms per control step, {steps / exec_s:.1f} env steps/s; run() "
             f"{wall:.3f} s in all; launches {launches}; {syncs} host waits for the card "
-            f"in the whole run")
+            f"in the whole run{success}")
+        log(f"[driver]   host waits by source line: {dict(waits[1].most_common(8))}")
         with open(os.path.join(params.model_dir, "checkpoints_latest", "rollout_buffer.pkl"),
                   "rb") as f:
             episodes = pickle.load(f)
@@ -1313,9 +1485,9 @@ def phase_driver(device, workdir: str):
             note = (f"; root pitch in [{angle.min():.3f}, {angle.max():.3f}] rad, first past "
                     f"+-pi/2 at step {past[0] if len(past) else 'none'}")
         log(f"[driver]   episode lengths {[len(r) for r in episodes]}{note}")
-        expected = 0 if kernel is None else launches[kernel]
-        check(expected == per_step * steps and sum(launches.values()) == expected,
-              f"{name}: launches {launches}, expected {per_step * steps} of {kernel}")
+        got = 0 if kernel is None else launches[kernel]
+        check(got == expected and sum(launches.values()) == expected,
+              f"{name}: launches {launches}, expected {expected} of {kernel}")
         check(np.isfinite(ret), f"{name}: non-finite return {ret}")
         if least is not None:
             check(ret > least, f"{name}: return {ret:.2f} not above {least}")
@@ -1329,7 +1501,8 @@ def phase_driver(device, workdir: str):
         rm = RolloutManager(env, {**params.rollout_params, "task_horizon": idle_steps},
                             device=device)
         rm.sample(ctrl)  # first launches of this env's model: binding, caches
-        profile_window(lambda: rm.sample(ctrl), idle_steps, f"driver {tag}")
+        profile_window(lambda: rm.sample(ctrl), idle_steps, f"driver {i}_{tag}")
+    return totals
 
 
 def phase_driver_resume(device, workdir: str):
@@ -1435,16 +1608,31 @@ def main() -> int:
         spatial_shapes.append((env, ctrl.cfg.num_simulated_trajectories + ctrl.cfg.elites_kept,
                                ctrl.cfg.horizon))
     dserr, _ = phase_spatial_kernel_vs_plain(device, [
-        (env, P, h, min(h, 12)) for env, P, h in spatial_shapes])
+        (env, P, h, min(h, 10)) for env, P, h in spatial_shapes])
     phase_driver_times(device, main_path_shapes(cheetah_cfg)[:-1], spatial_shapes)
     log(f"[wall] {time.perf_counter() - t_start:.1f} s: the kernels at the driver's shapes")
     perr = phase_planar_envs(device)
     phase_planar_controllers(device)
     log(f"[wall] {time.perf_counter() - t_start:.1f} s: the other planar shapes")
+    # the other controllers' shapes: vanilla CEM and random shooting on
+    # HalfCheetah and Ant3D, and the repeated Ant3D's h = 1 launches
+    oerr, _ = phase_kernel_vs_plain(device, [CEM_STD_SHAPE, RANDOM_SHAPE])
+    oserr, _ = phase_spatial_kernel_vs_plain(device, [
+        (ant, *CEM_STD_SHAPE, 10), (ant, *RANDOM_SHAPE, 10), (ant, 64, 1, 1)])
+    phase_driver_times(device, [CEM_STD_SHAPE, RANDOM_SHAPE],
+                       [(ant, *CEM_STD_SHAPE), (ant, *RANDOM_SHAPE), (ant, 64, 1)])
+    other = phase_other_controllers(device)
+    log(f"[wall] {time.perf_counter() - t_start:.1f} s: the other controllers")
     with tempfile.TemporaryDirectory() as workdir:
-        phase_driver(device, workdir)
+        driver = phase_driver(device, workdir)
         phase_driver_resume(device, workdir)
     log(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s after start-up")
+    # each path's launches, read just after it ran with the counts at 0
+    launches = {k: driver[k] + other[k] for k in driver}
+    launches["planar"] += path["launches"]
+    launches["spatial"] += spath["launches"]
+    log(f"[launches] main paths: planar {path['launches']}, spatial {spath['launches']}; "
+        f"the other controllers {other}; the driver runs {driver}")
 
     a = stimes[ant.name]
     log(json.dumps({"kernels": [{
@@ -1452,8 +1640,8 @@ def main() -> int:
         "route": "cuda",
         "source": "icem_torch/csrc/planar_rollout.cu",
         "replaces": "icem_tpu/ops/planar_rollout.py:103",
-        "launches": path["launches"],
-        "max_abs_err": max(err, derr, perr),
+        "launches": launches["planar"],
+        "max_abs_err": max(err, derr, perr, oerr),
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
@@ -1464,8 +1652,8 @@ def main() -> int:
         "route": "cuda",
         "source": "icem_torch/csrc/spatial_rollout.cu",
         "replaces": "icem_tpu/ops/spatial_rollout.py:128",
-        "launches": spath["launches"],
-        "max_abs_err": max(serr, dserr),
+        "launches": launches["spatial"],
+        "max_abs_err": max(serr, dserr, oserr),
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"],

@@ -26,19 +26,18 @@ of an episode masks its missing elites with a Python flag.
 
 from __future__ import annotations
 
-import os
-import pickle
-from dataclasses import asdict, dataclass
+from dataclasses import dataclass
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from icem_torch.device import resolve_device
+from icem_torch.controllers.mpc_common import ModelConsistencyMixin, PlannerCheckpointMixin
+from icem_torch.device import indexed, on_device, resolve_device
 from icem_torch.models.base import rollout_open_loop, trajectory_cost
 from icem_torch.ops.colored_noise import sample_colored_action_noise
-from icem_torch.runtime.checkpoint import pack_pytree, unpack_pytree
+from icem_torch.runtime.seeding import Seeding
 
 
 @dataclass(frozen=True)
@@ -105,13 +104,14 @@ class ICemConfig:
     def bounds(self, device):
         """(low, high) as float32 tensors on ``device``, made once per device:
         a copy from host memory would make the host wait for the card."""
-        return _bounds(self, torch.device(device))
+        return action_bounds(self, indexed(device))
 
 
 @lru_cache(maxsize=None)
-def _bounds(cfg: ICemConfig, device: torch.device):
-    return (torch.tensor(cfg.action_low, dtype=torch.float32, device=device),
-            torch.tensor(cfg.action_high, dtype=torch.float32, device=device))
+def action_bounds(cfg, device: torch.device):
+    """(low, high) of a config with ``action_low`` / ``action_high``, made
+    once per config and device."""
+    return on_device((cfg.action_low, cfg.action_high), device)
 
 
 class ICemState(NamedTuple):
@@ -203,7 +203,7 @@ def _refit(cfg: ICemConfig, mean, std, cand_actions, cand_costs, cand_last_obs):
     return mean, std, elite_actions, elite_costs, elite_last_obs
 
 
-def _best(cand_actions, cand_costs, cand_last_obs):
+def best_candidate(cand_actions, cand_costs, cand_last_obs):
     """The candidate at the first minimum cost: (actions, cost, last obs).
 
     Indexed by a one-element index tensor: a 0-d index tensor would be read
@@ -274,8 +274,8 @@ def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
         cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
                                  cand_costs, float("inf"))
 
-        best_action_seq, best_cost, best_last_obs = _best(cand_actions, cand_costs,
-                                                          cand_last_obs)
+        best_action_seq, best_cost, best_last_obs = best_candidate(
+            cand_actions, cand_costs, cand_last_obs)
 
         mean, std, elite_actions, elite_costs, elite_last_obs = _refit(
             cfg, mean, std, cand_actions, cand_costs, cand_last_obs)
@@ -368,8 +368,8 @@ def _plan_step_scan(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState,
 
         cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
                                  cand_costs, float("inf"))
-        best_action_seq, best_cost, best_last_obs = _best(cand_actions, cand_costs,
-                                                          cand_last_obs)
+        best_action_seq, best_cost, best_last_obs = best_candidate(
+            cand_actions, cand_costs, cand_last_obs)
 
         mean, std, e_a, e_c, e_o = _refit(cfg, mean, std, cand_actions, cand_costs,
                                           cand_last_obs)
@@ -384,6 +384,15 @@ def _plan_step_scan(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState,
                       best_actions=best_action_seq, best_last_obs=best_last_obs)
 
 
+def validate_sampler_params(asp: dict, allowed: tuple):
+    """Reject unknown action_sampler_params keys: a typo would otherwise run
+    the defaults silently."""
+    unknown = set(asp) - set(allowed)
+    if unknown:
+        raise TypeError(f"unknown action_sampler_params {sorted(unknown)}; "
+                        f"valid: {sorted(allowed)}")
+
+
 _ICEM_SAMPLER_KEYS = (
     "alpha", "elites_size", "opt_iterations", "init_std", "use_mean_actions",
     "keep_previous_elites", "shift_elites_over_time", "fraction_elites_reused",
@@ -391,28 +400,34 @@ _ICEM_SAMPLER_KEYS = (
 )
 
 
-class MpcICem:
+class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
     """Controller with the reference API (beginning_of_rollout / get_action)
-    around ``plan_step`` and its state. Settings keys the port does not use
-    (``verbose``, ...) are accepted and ignored."""
+    around ``plan_step`` and its state.
+
+    ``verbose``: check the synced model against the env state at every step
+    (``check_model_consistency``; one host read a step). ``do_visualize_plan``
+    (True / "last" or "all"): replay every chosen plan through the env and
+    the model and report their divergence (``visualize_plan``).
+    """
 
     needs_forward_model = True
+    _shape_fields = ("horizon", "action_dim", "elites_size", "num_simulated_trajectories",
+                     "fraction_elites_reused")
 
     def __init__(self, *, env, forward_model, action_sampler_params=None,
                  horizon=30, num_simulated_trajectories=40, factor_decrease_num=1.25,
                  cost_along_trajectory="sum", use_env_reward_as_cost=False,
-                 do_visualize_plan=False, seed: Optional[int] = None,
+                 verbose=False, do_visualize_plan=False, seed: Optional[int] = None,
                  sharded=False, cem_loop="auto", device=None, **kwargs):
         asp = dict(action_sampler_params or {})
-        unknown = set(asp) - set(_ICEM_SAMPLER_KEYS)
-        if unknown:
-            raise TypeError(f"unknown action_sampler_params {sorted(unknown)}; "
-                            f"valid: {sorted(_ICEM_SAMPLER_KEYS)}")
+        validate_sampler_params(asp, _ICEM_SAMPLER_KEYS)
         if sharded is True:
             raise NotImplementedError(
                 "sharded=True is not ported to icem_torch yet: it plans on one device")
-        if do_visualize_plan:
-            raise NotImplementedError("visualize_plan is not ported to icem_torch yet")
+        if do_visualize_plan == "record":
+            raise NotImplementedError(
+                "do_visualize_plan='record' writes the plan replay through the video "
+                "writer (runtime/video.py), which is not ported to icem_torch yet")
         if cem_loop == "auto":
             # as in the JAX package: the spatial (3D) envs plan with the
             # scanned loop, the planar envs with the unrolled one
@@ -433,23 +448,23 @@ class MpcICem:
             action_high=tuple(np.asarray(env.action_space.high).ravel().tolist()),
             **{k: asp[k] for k in _ICEM_SAMPLER_KEYS if k in asp},
         )
+        self.verbose = bool(verbose)
+        self.do_visualize_plan = do_visualize_plan
         self._seed = seed
         self._pstate: Optional[ICemState] = None
         self._model_state = None
         self.was_reset = False
         self.last_expected_cost = None
 
+    @property
+    def model_evals_per_timestep(self):
+        return self.cfg.model_evals_per_timestep
+
     def _as_tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def beginning_of_rollout(self, *, observation, state=None, mode="train"):
-        from icem_torch.runtime.seeding import Seeding
-
-        if self._seed is not None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self._seed)
-        else:
-            gen = Seeding.next_generator("controller/icem", self.device)
+        gen = Seeding.controller_generator(self._seed, "controller/icem", self.device)
         obs_dim = int(np.shape(observation)[-1])
         self._pstate = init_state(self.cfg, obs_dim, gen)
         self._model_state = self.forward_model.got_actual_observation_and_env_state(
@@ -457,20 +472,73 @@ class MpcICem:
             env_state=None if state is None else self._as_tensor(state),
             model_state=None)
         self.was_reset = True
+        if self.verbose:
+            print(f"iCEM using {self.cfg.model_evals_per_timestep} evaluations per step "
+                  f"and {self.cfg.model_evals_per_timestep / self.cfg.horizon} "
+                  f"trajectories per step")
+
+    def visualize_plan(self, obs, env_state, result: PlanResult):
+        """Replay the chosen plan (``result.best_actions``) from the real env
+        state and report how far it lands from the model's prediction.
+
+        - True / "last": the norm of the final observation's miss against
+          ``result.best_last_obs``, printed when above 0.01; returned.
+        - "all": the plan through both the env and the forward model; prints
+          the first step where they differ by more than 0.01, with both
+          observations, and returns the largest per-step difference.
+
+        Returns None without an env state. One host read."""
+        if env_state is None:
+            return None
+        mode = self.do_visualize_plan or "last"
+        if mode is True:
+            mode = "last"
+        env_obs = []
+        s = env_state
+        for a in result.best_actions:
+            s, o, _, _ = self.env.step(s, a)
+            env_obs.append(o)
+        env_obs = torch.stack(env_obs)
+        if mode == "last":
+            div = float(torch.linalg.vector_norm(env_obs[-1] - result.best_last_obs))
+            if div > 0.01:
+                print(f"plan divergence at horizon end: |env - model| = {div:.5f}")
+            return div
+
+        model_obs = []
+        ms, ob = self._model_state, obs
+        for a in result.best_actions:
+            ms, ob, _ = self.forward_model.predict_fn(ms[None], ob[None], a[None])
+            ms, ob = ms[0], ob[0]
+            model_obs.append(ob)
+        model_obs = torch.stack(model_obs).cpu().numpy()
+        env_obs = env_obs.cpu().numpy()
+        per_step = np.linalg.norm(env_obs - model_obs, axis=-1)
+        bad = np.nonzero(per_step > 0.01)[0]
+        if bad.size:
+            i = int(bad[0])
+            print(f"simulation for visualization does not match mental model at {i}: ")
+            print("orig: ", model_obs[i])
+            print("simu: ", env_obs[i])
+        return float(per_step.max()) if len(per_step) else 0.0
 
     def get_action(self, obs, state=None, mode="train"):
         if not self.was_reset:
             raise AttributeError("beginning_of_rollout() needs to be called before")
         obs = self._as_tensor(obs)
         state = None if state is None else self._as_tensor(state)
+        if self.verbose:
+            self.check_model_consistency(state)
         self._model_state = self.forward_model.got_actual_observation_and_env_state(
             observation=obs, env_state=state, model_state=self._model_state)
         result = plan_step(self.cfg, self.forward_model.predict_fn, self.env.cost_fn,
                            self._pstate, obs, self._model_state)
         self._pstate = result.state
         self.last_expected_cost = result.expected_cost
-        # (the JAX controller then advances a stateful model by the executed
-        # action; the ground-truth model is re-synced from reality instead)
+        if self.do_visualize_plan:
+            self.visualize_plan(obs, state, result)
+        if self.verbose:
+            self._advance_model(obs, result.action)
         return result.action.cpu().numpy()
 
     def end_of_rollout(self, total_time, total_return, mode):
@@ -503,44 +571,3 @@ class MpcICem:
 
     def train(self, buffer):
         return {}
-
-    def save(self, path):
-        """Pickle the live planner state so that a resumed controller's next
-        action equals this one's to the bit: the distribution, the elite
-        memory, the generator's state and the synced model state."""
-        state = {
-            "cfg": asdict(self.cfg),
-            "was_reset": self.was_reset,
-            "pstate": pack_pytree(self._pstate) if self._pstate is not None else None,
-            "model_state": pack_pytree(self._model_state)
-            if self._model_state is not None else None,
-        }
-        with open(path, "wb") as f:
-            pickle.dump(state, f)
-
-    def load(self, path):
-        """Restore what ``save`` wrote, onto this controller's device."""
-        if not os.path.exists(path):
-            return
-        with open(path, "rb") as f:
-            state = pickle.load(f)
-        saved_cfg = state.get("cfg") or {}
-        cfg = asdict(self.cfg)
-        # fields that determine the planner state's shapes: restoring across
-        # a change here would fail later, far from the cause
-        shape_fields = ("horizon", "action_dim", "elites_size",
-                        "num_simulated_trajectories", "fraction_elites_reused")
-        mismatched = {f: (saved_cfg.get(f), cfg[f]) for f in shape_fields
-                      if saved_cfg.get(f) != cfg[f]}
-        if saved_cfg != cfg:
-            if mismatched:
-                print(f"{type(self).__name__}.load: checkpoint planner shapes differ "
-                      f"({mismatched}); keeping fresh planner state")
-            else:
-                print(f"{type(self).__name__}.load: checkpoint was written with a "
-                      f"different controller config; restoring state anyway")
-        self.was_reset = bool(state.get("was_reset", False))
-        if state.get("pstate") is not None and not mismatched:
-            self._pstate = unpack_pytree(state["pstate"], self.device)
-        if state.get("model_state") is not None:
-            self._model_state = unpack_pytree(state["model_state"], self.device)

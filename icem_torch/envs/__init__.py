@@ -2,7 +2,7 @@
 
 Counterpart of ``icem_tpu/envs/__init__.py``: registry strings resolve to the
 same environments, so settings files name them unchanged. It holds the envs
-ported so far; any other name raises ``ImportError`` naming the known ones.
+ported; any other name raises ``ImportError`` naming the known ones.
 """
 
 from importlib import import_module
@@ -24,6 +24,9 @@ _ENV_REGISTRY = {
     "Humanoid": ("icem_torch.envs.humanoid3d", "Humanoid3D"),
     "PlanarHumanoidStandup": ("icem_torch.envs.humanoid", "HumanoidStandup"),
     "PlanarHumanoid": ("icem_torch.envs.humanoid", "Humanoid"),
+    # goal-conditioned manipulation
+    "FetchPickAndPlace": ("icem_torch.envs.fetch", "FetchPickAndPlace"),
+    "FetchReach": ("icem_torch.envs.fetch", "FetchReach"),
     # dm-suite flavors
     "cartpole": ("icem_torch.envs.dm_suite", "CartPoleSuite"),
     "reacher": ("icem_torch.envs.dm_suite", "ReacherSuite"),
@@ -32,6 +35,9 @@ _ENV_REGISTRY = {
     "restricted_point_mass": ("icem_torch.envs.dm_suite", "RestrictedDoubleIntSuite"),
     "cheetah": ("icem_torch.envs.dm_suite", "HalfCheetahSuite"),
     "swimmer": ("icem_torch.envs.dm_suite", "SwimmerSuite"),
+    # Adroit hand manipulation
+    "Door": ("icem_torch.envs.adroit", "Door"),
+    "Relocate": ("icem_torch.envs.adroit", "Relocate"),
 }
 
 

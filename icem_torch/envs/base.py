@@ -21,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from icem_torch.device import indexed, on_device
+
 
 def uniform(generator: torch.Generator, shape, low: float, high: float):
     """A uniform draw in [low, high) on the generator's device."""
@@ -47,18 +49,23 @@ class BoxSpace:
     def dim(self) -> int:
         return int(np.prod(self.low.shape))
 
-    def _bounds(self, device):
-        return (torch.as_tensor(self.low, device=device),
-                torch.as_tensor(self.high, device=device))
+    def bounds(self, device):
+        """(low, high) as tensors on ``device``, made once per device: a copy
+        to the card at every draw would make the host wait for it."""
+        cache = self.__dict__.setdefault("_device_bounds", {})
+        device = indexed(device)
+        if device not in cache:
+            cache[device] = on_device((self.low, self.high), device)
+        return cache[device]
 
     def sample(self, generator: torch.Generator):
         """A uniform draw on the generator's device."""
-        low, high = self._bounds(generator.device)
+        low, high = self.bounds(generator.device)
         u = torch.rand(self.shape, generator=generator, device=generator.device)
         return low + u * (high - low)
 
     def clip(self, x):
-        low, high = self._bounds(x.device)
+        low, high = self.bounds(x.device)
         return torch.clamp(x, low, high)
 
 
@@ -180,20 +187,34 @@ class Env:
         goal, mask = self._constants(observation.device, self.goal_state, self.goal_mask)
         return torch.linalg.vector_norm((observation - goal) * mask, dim=-1)
 
-    def _constants(self, device, *arrays):
-        """numpy constants of the env as float32 tensors on ``device``, made
-        once per device: a copy to the card inside a step would make the host
-        wait for it at every step."""
+    def reward_fn(self, observation, action, next_obs):
+        return -self.cost_fn(observation, action, next_obs)
+
+    def _constants(self, device, *arrays, dtype=torch.float32):
+        """numpy constants of the env as tensors on ``device``, made once per
+        device in one copy: a copy to the card inside a step would make the
+        host wait for it at every step."""
         cache = self.__dict__.setdefault("_constant_cache", {})
-        key = (str(device),) + tuple(id(a) for a in arrays)
+        device = indexed(device)
+        key = (device,) + tuple(id(a) for a in arrays)
         if key not in cache:
-            cache[key] = (arrays, tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
-                                        for a in arrays))
+            cache[key] = (arrays, on_device(arrays, device, dtype))
         return cache[key][1]
 
     def state_from_observation(self, observation):
         """Reconstruct a dynamics state from an observation (GT-model entry)."""
         raise NotImplementedError(f"{self.name} cannot reconstruct state from observation")
+
+    @staticmethod
+    def compute_state_difference(state1, state2):
+        """Largest absolute difference of two states, a 0-d tensor (states
+        may be tensors or nested tuples and lists of them)."""
+        def flat(state):
+            if isinstance(state, (tuple, list)):
+                return torch.cat([flat(x) for x in state])
+            return torch.as_tensor(state).reshape(-1)
+
+        return torch.max(torch.abs(flat(state1) - flat(state2)))
 
     def is_success(self, observation, action, next_obs):
         """Per-step success flag; None means the env has no success notion."""
@@ -221,3 +242,48 @@ class Env:
     @property
     def action_dim(self) -> int:
         return self.action_space.dim
+
+
+class MaskedGoalSpaceEnv(Env):
+    """Goal-conditioned env whose goal and achieved goal are index sets of
+    the observation, with a sparse (0/1 above ``threshold``) or dense
+    (distance) cost and success on the next observation."""
+
+    def __init__(self, *, goal_idx, achieved_goal_idx, sparse: bool, threshold: float = 0.1,
+                 **kwargs):
+        super().__init__(**kwargs)
+        if threshold < 0:
+            raise ValueError(f"threshold must be >= 0, got {threshold}")
+        self.goal_idx = np.asarray(goal_idx, np.int64)
+        self.achieved_goal_idx = np.asarray(achieved_goal_idx, np.int64)
+        self.sparse = bool(sparse)
+        self.threshold = float(threshold)
+
+    def _indices(self, device):
+        """(goal, achieved goal) index tensors on ``device``."""
+        return self._constants(device, self.goal_idx, self.achieved_goal_idx, dtype=torch.int64)
+
+    def goal_from_observation(self, observations):
+        return observations[..., self._indices(observations.device)[0]]
+
+    def achieved_goal_from_observation(self, observations):
+        return observations[..., self._indices(observations.device)[1]]
+
+    def overwrite_goal(self, observations, goals):
+        out = observations.clone()
+        out[..., self._indices(observations.device)[0]] = goals
+        return out
+
+    def _goal_distance(self, observations):
+        return torch.linalg.vector_norm(self.goal_from_observation(observations)
+                                        - self.achieved_goal_from_observation(observations),
+                                        dim=-1)
+
+    def cost_fn(self, observation, action, next_obs):
+        dist = self._goal_distance(observation)
+        if self.sparse:
+            return (dist > self.threshold).to(torch.float32)
+        return dist
+
+    def is_success(self, observation, action, next_obs):
+        return (self._goal_distance(next_obs) <= self.threshold).to(torch.float32)

@@ -5,6 +5,9 @@ env step included, goes through ``ops/spatial_rollout.py::rollout_spatial``:
 the CUDA kernel on a CUDA tensor, the plain row engine on a CPU tensor. A real
 step is a rollout of one trajectory over one control step; a planner's
 population rollout is one launch over the whole horizon, at any population.
+With action repeat the whole-horizon rollout declines (returns None), as the
+JAX one does, and the caller steps the repeated ``step_batched``: one launch
+with h = 1 per sub-step.
 
 Subclasses implement ``_post_step(state, new_state, action) -> (obs, reward,
 done)`` over leading batch dimensions; the state layout is
@@ -33,15 +36,13 @@ class SpatialEnv(Env):
 
     def _physics(self, states, actions):
         """[P, S] states under clipped [P, h, A] actions -> (qs, qds) [h, P, nd]."""
-        if self.action_repeat != 1:
-            raise NotImplementedError(
-                f"action_repeat={self.action_repeat} is not ported to icem_torch yet")
         nd = self.model.ndof
         return rollout_spatial(self.model, states[:, :nd], states[:, nd: 2 * nd],
                                actions.contiguous())
 
     def step(self, state, action):
-        new_states, obs, rewards, dones = self.step_batched(state[None], action[None])
+        # the raw population step: action repeat wraps this method itself
+        new_states, obs, rewards, dones = self._raw_step_batched(state[None], action[None])
         return new_states[0], obs[0], rewards[0], dones[0]
 
     def step_batched(self, states, actions):
@@ -59,8 +60,11 @@ class SpatialEnv(Env):
 
         states: [P, S]; actions: [P, h, A]. Returns the rollout_open_loop
         contract: (obs_seq, next_obs_seq, actions_tm, rewards, final_states)
-        with time-major [h, P, ...] sequences.
+        with time-major [h, P, ...] sequences. None with action repeat: this
+        path bypasses the repeated step, so the caller takes the per-step one.
         """
+        if self.action_repeat != 1:
+            return None
         acts = torch.clamp(actions, -1.0, 1.0)
         qs, qds = self._physics(states, acts)
         return self._assemble_rollout(states, acts, qs, qds)

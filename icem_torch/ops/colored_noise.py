@@ -20,6 +20,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from icem_torch.device import on_device
+
 @lru_cache(maxsize=None)
 def _irfft_synthesis_matrices(n: int):
     """Real matrices (C, D) with irfft(S, n) = Re(S) @ C + Im(S) @ D, built
@@ -39,8 +41,7 @@ def _irfft_synthesis_matrices(n: int):
 
 @lru_cache(maxsize=None)
 def _synthesis_on(n: int, device: torch.device):
-    C, D = _irfft_synthesis_matrices(n)
-    return torch.from_numpy(C).to(device), torch.from_numpy(D).to(device)
+    return on_device(_irfft_synthesis_matrices(n), device)
 
 
 def powerlaw_spectrum_scale(n: int, beta: float, fmin: float = 0.0,
@@ -83,7 +84,7 @@ def _spectrum_on(n: int, beta: float, fmin: float, dtype, device: torch.device):
         real_only[-1] = True
     imag_keep = (~real_only).to(dtype)
     real_fix = torch.where(real_only, math.sqrt(2.0), 1.0).to(dtype)
-    return tuple(x.to(device) for x in (s_scale, sigma, imag_keep, real_fix))
+    return on_device((s_scale, sigma, imag_keep, real_fix), device, dtype)
 
 
 def shape_white_spectrum(white_real, white_imag, beta: float, n: int,

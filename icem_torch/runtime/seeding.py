@@ -66,3 +66,13 @@ class Seeding:
         n = cls._counters.get(kind, 0)
         cls._counters[kind] = n + 1
         return cls.generator_for(f"{kind}/{n}", device)
+
+    @classmethod
+    def controller_generator(cls, seed: Optional[int], kind: str, device=None) -> torch.Generator:
+        """A controller's stream: a generator seeded with ``seed`` where one
+        is given, else the next stream of ``kind``."""
+        if seed is None:
+            return cls.next_generator(kind, device)
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(seed)
+        return gen

@@ -117,16 +117,11 @@ def test_packed_generator_restores_only_on_its_device_type():
 
 
 def test_unported_names_and_options_raise(tmp_path):
-    for name in ("mpc-cem-std", "random"):
-        with pytest.raises(ImportError, match="known: \\['mpc-icem'\\]"):
-            controller_from_string(name)
+    # every controller string resolves since the other controllers were
+    # ported (tests/test_torch_controllers.py); the learned models do not
     for name in ("EnsembleModel", "RSSM"):
         with pytest.raises(ImportError, match="GroundTruthModel"):
             forward_model_from_string(name)
-    with pytest.raises(ImportError, match="mpc-cem-std"):
-        tmain.run(apply_overrides(resolve_settings(
-            str(ROOT / "settings" / "halfcheetah_running" / "cem-std.json")),
-            [f"model_dir={tmp_path / 'cem'}"]), device="cpu")
     with pytest.raises(NotImplementedError, match="video"):
         tmain.run(_params("halfcheetah", tmp_path / "rec", "rollout_params.record=true"),
                   device="cpu")
@@ -244,3 +239,88 @@ def test_shipped_planar_and_analytic_settings_run_on_the_cpu(name, tmp_path):
         assert env.action_repeat == 8 and env.get_fps() == pytest.approx(12.5)
     if name == "hopper":
         assert env.model.ndof == 6 and env.obs_dim == 12
+
+
+# the shipped settings of the other controllers and the goal-conditioned envs
+OTHER = {
+    "cem_std": ("halfcheetah_running/cem-std.json", []),            # vanilla CEM, B1's path
+    "fetch_reach": ("fetch_reach/i-cem-blitz.json", []),            # goal env, success
+    "door": ("door/i-cem-blitz.json", ["controller_params.action_sampler_params.elites_size=3",
+                                       "controller_params.action_sampler_params.opt_iterations=2"]),
+    # a random initial phase in front of the main controller
+    "random_initial": ("halfcheetah_running/i-cem-blitz.json",
+                       ["initial_controller=random", "initial_number_of_rollouts=1"]),
+}
+
+
+@pytest.mark.parametrize("name", list(OTHER))
+def test_shipped_goal_env_and_controller_settings_run_on_the_cpu(name, tmp_path):
+    md = str(tmp_path / name)
+    path, extra = OTHER[name]
+    params = apply_overrides(resolve_settings(str(ROOT / "settings" / path)),
+                             TINY + extra + [f"model_dir={md}"])
+    info = tmain.run(params, device="cpu")
+    steps = [0, 1, 2] if name == "random_initial" else [0, 1]
+    assert info["step"] == steps
+    metrics = METRICS + (("train_mean_success", "train_std_success")
+                         if name in ("fetch_reach", "door") else ())
+    for key in metrics:
+        assert len(info[key]) == len(steps) and all(np.isfinite(info[key])), key
+    logged = {json.loads(line)["key"] for line in open(os.path.join(md, "metrics.jsonl"))}
+    assert set(metrics) <= logged
+    assert os.readlink(os.path.join(md, "checkpoints_latest")) == f"checkpoints_00{steps[-1]}"
+    main_cls = {"cem_std": "MpcCemStd"}.get(name, "MpcICem")
+    assert controller_from_string(params.controller).__name__ == main_cls
+    if name == "random_initial":
+        # the random phase's episode differs from the planner's
+        assert info["train_mean_return"][0] != info["train_mean_return"][1]
+
+
+def test_fpp_settings_resolve_with_their_rollout_key(tmp_path):
+    """settings/fpp carries rollout_params.num_parallel, which the JAX
+    driver reads and does not use either; a run goes through."""
+    md = str(tmp_path / "fpp")
+    params = apply_overrides(resolve_settings(str(ROOT / "settings" / "fpp" / "i-cem-blitz.json")),
+                             TINY + ["training_iterations=1", f"model_dir={md}"])
+    assert params.rollout_params.num_parallel == 16
+    info = tmain.run(params, device="cpu")
+    assert info["step"] == [0] and np.isfinite(info["train_mean_success"][0])
+
+
+def _controller(name, params_path, seed):
+    params = apply_overrides(resolve_settings(str(ROOT / "settings" / params_path)),
+                             TINY + [f"controller_params.seed={seed}"])
+    env = env_from_string(params.env, **params.env_params)
+    model = forward_model_from_string(params.forward_model)(env=env)
+    cls = controller_from_string(name)
+    kwargs = dict(params.controller_params) if name != "random" else dict(
+        action_change_frequency=3, seed=seed)
+    if name == "mpc-random":
+        kwargs = dict(horizon=4, num_simulated_trajectories=8, seed=seed)
+    return env, tmain._build_controller(cls, env, model, kwargs, "cpu")
+
+
+@pytest.mark.parametrize("name", ["mpc-cem-std", "random", "mpc-random"])
+def test_other_controllers_save_load_gives_the_same_next_actions(name, tmp_path):
+    """A controller saved mid-episode and loaded into a fresh one of another
+    seed gives the same next actions to the bit: the CEM distribution and
+    generator, the random policy's held action and generator, the random
+    shooter's generator."""
+    path = "halfcheetah_running/cem-std.json" if name == "mpc-cem-std" else \
+        "halfcheetah_running/i-cem-blitz.json"
+    Seeding.set_seed(0)
+    env, ctrl = _controller(name, path, seed=21)
+    state = env.init_state(Seeding.generator_for("start", "cpu"))
+    obs = env.observation(state)
+    ctrl.beginning_of_rollout(observation=obs, state=state)
+    for _ in range(2):  # mid-episode (mid-hold for the random policy)
+        ctrl.get_action(obs, state)
+    ctrl.save(str(tmp_path / "controller"))
+    a_orig = [ctrl.get_action(obs, state) for _ in range(3)]
+
+    restored = _controller(name, path, seed=99)[1]
+    restored.beginning_of_rollout(observation=obs, state=state)
+    restored.load(str(tmp_path / "controller"))
+    for a in a_orig:
+        np.testing.assert_array_equal(a, restored.get_action(obs, state))
+    restored.load(str(tmp_path / "missing"))  # no checkpoint: nothing changes

@@ -190,8 +190,10 @@ def test_unported_options_raise():
     model = GroundTruthModel(env=env)
     with pytest.raises(NotImplementedError, match="sharded"):
         tic.MpcICem(env=env, forward_model=model, sharded=True, device="cpu")
+    # the plan replay is ported (tests/test_torch_controllers.py); its video
+    # mode needs the video writer, which is not
     with pytest.raises(NotImplementedError, match="visualize_plan"):
-        tic.MpcICem(env=env, forward_model=model, do_visualize_plan=True, device="cpu")
+        tic.MpcICem(env=env, forward_model=model, do_visualize_plan="record", device="cpu")
     with pytest.raises(TypeError, match="unknown action_sampler_params"):
         tic.MpcICem(env=env, forward_model=model, device="cpu",
                     action_sampler_params=dict(nosie_beta=1.0))

@@ -81,9 +81,21 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
 17. runs ``MpcCemStd.get_action`` and ``MpcRandom.get_action`` through the
     registry on HalfCheetah and Ant3D, and vanilla CEM on an Ant3D with
     action repeat 2 (every sub-step an h = 1 launch);
-18. runs the driver on settings/halfcheetah_running/cem-std.json (1,000
-    steps), fetch_reach, fpp, door and relocate/i-cem-blitz.json as shipped
-    (returns beside success rates), and HalfCheetah with a ``random``
+18. builds the learned models of the five learned-model settings on the
+    card through the registry at the settings' widths (the ensemble
+    E 5 x (200, 200, 200) on HalfCheetah and E 5 x (128, 128) on the
+    pendulum, the RSSM det 200, stoch 30, hidden 200, embed 128 on dm
+    cheetah, cart-pole and reacher), holds one ``apply_fn`` step at the
+    planner's population and one update on an injected batch against a CPU
+    copy of the same weights, then runs the driver on each setting, cut to
+    1 random initial episode and 1 training iteration (HalfCheetah 200
+    steps, the pendulum's 120 as shipped, the planet envs 50 control
+    steps and 20 of their 100 updates a training): the model trains after each iteration and the planner plans
+    with its live weights; kernel B1 runs the planar envs' real steps;
+19. runs the driver on settings/halfcheetah_running/cem-std.json (1,000
+    steps), fetch_reach and fpp/i-cem-blitz.json as shipped, door and
+    relocate/i-cem-blitz.json with 100 of their 200 steps (returns beside
+    success rates), and HalfCheetah with a ``random``
     initial phase (200-step episodes), as in step 11; the host waits of
     every run are printed by source line.
 
@@ -98,13 +110,16 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1314,6 +1329,234 @@ def phase_other_controllers(device, steps: int = 5):
 
 
 # ---------------------------------------------------------------------------
+# the learned models: EnsembleModel and RSSM, trained and planned by the driver
+
+# the learned-model settings, each cut to 1 random initial episode and 1
+# training iteration: (settings, overrides beyond those, the steps of the
+# episode the idle share is taken over). The ensembles' epochs as shipped.
+_PLANET_CUTS = ("rollout_params.task_horizon=50", "forward_model_params.train_steps=20")
+LEARNED_RUNS = (
+    # the fused device episode; 200 of its 1,000 steps
+    ("halfcheetah_running/ensemble-icem", ("rollout_params.task_horizon=200",), 5),
+    # the fused device episode, 120 steps as shipped (2 episodes an iteration)
+    ("pendulum/ensemble-icem", (), 5),
+    # the host-driven episode loop (fuse_on_device false): 50 control steps
+    # of 125-250, 20 of the 100 updates a training (about 54 ms each)
+    ("planet/cheetah_run", _PLANET_CUTS, 2),
+    ("planet/cartpole_swingup", _PLANET_CUTS, 2),
+    ("planet/reacher_easy", _PLANET_CUTS, 2),
+)
+LEARNED_CUTS = ("initial_number_of_rollouts=1", "training_iterations=1")
+# card against CPU, the same weights and draws: float32 sums of up to 200
+# terms in another order
+LEARNED_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def learned_model(name: str, device, *overrides):
+    """(env, model, resolved settings) of ``settings/<name>.json``: the model
+    built through the registry with the settings' own widths."""
+    from icem_torch.envs import env_from_string
+    from icem_torch.models import forward_model_from_string
+    from icem_torch.runtime.config import apply_overrides, resolve_settings
+
+    params = apply_overrides(resolve_settings(f"settings/{name}.json"), list(overrides))
+    env = env_from_string(params.env, **params.get("env_params", {}))
+    model = forward_model_from_string(params.forward_model)(
+        env=env, device=device, **params.get("forward_model_params", {}))
+    return env, model, params
+
+
+def _max_err(card, cpu, what: str) -> float:
+    card, cpu = card.detach().cpu().numpy(), cpu.detach().numpy()
+    check(np.allclose(card, cpu, **LEARNED_TOL),
+          f"{what}: the card and the CPU differ by {np.abs(card - cpu).max():.3e}")
+    return float(np.abs(card - cpu).max())
+
+
+def _steps_agree(card_model, cpu_model, lr: float, what: str) -> float:
+    """The weights after one update on the card against the CPU's: the
+    first-Adam-step rule of tests/test_torch_ensemble.py, with the CPU's
+    gradient (entries with |g| > 1e-6 max|g| at 1e-5, the others at 2 lr)."""
+    card = dict(card_model.net.named_parameters())
+    grads = {k: p.grad for k, p in cpu_model.net.named_parameters()}
+    gmax = max(float(g.abs().max()) for g in grads.values())
+    worst = worst_firm = 0.0
+    loose = 0
+    for k, p in cpu_model.net.named_parameters():
+        diff = (card[k].detach().cpu() - p.detach()).abs()
+        firm = grads[k].abs() > 1e-6 * gmax
+        loose += int((~firm).sum())
+        check(bool((diff[firm] <= 1e-5).all()) and bool((diff[~firm] <= 2 * lr).all()),
+              f"{what}: {k} differs by {float(diff.max()):.3e} after one update")
+        worst = max(worst, float(diff.max()))
+        worst_firm = max(worst_firm, float(diff[firm].max()) if bool(firm.any()) else 0.0)
+    log(f"[learned]   {what}: one update on an injected batch, card against CPU: max |dw| "
+        f"{worst_firm:.3e} where |g| > 1e-6 max|g|, {worst:.3e} over all ({loose} entries "
+        f"with |g| <= 1e-6 max|g|, held at 2 lr)")
+    return worst_firm
+
+
+def phase_learned_models_vs_cpu(device) -> float:
+    """Each learned model of the five settings, built on the card through the
+    registry at the settings' widths, against a CPU copy of its weights: one
+    ``apply_fn`` step at the planner's population with injected draws, and
+    one update on an injected batch. Returns the largest error."""
+    from icem_torch.main import get_controllers
+    from icem_torch.models.rssm import RSSMModel
+
+    worst = 0.0
+    for name, *_ in LEARNED_RUNS:
+        env, card, params = learned_model(name, device)
+        cpu = type(card)(env=env, device="cpu", **params.forward_model_params)
+        rng = np.random.default_rng(SEED + 30)
+        # non-trivial normalizers (the models' buffers), the same on both
+        for k, v in card.net.named_buffers():
+            noise = rng.uniform(0.5, 2.0, v.shape) if k.endswith("std") \
+                else rng.normal(size=v.shape)
+            v.copy_(torch.as_tensor(noise, dtype=torch.float32))
+        cpu.net.assign(card.params)
+        ctrl = get_controllers(params, env, card, device)[1]
+        P = ctrl.cfg.num_simulated_trajectories + (
+            ctrl.cfg.elites_kept if ctrl.cfg.shift_elites_over_time
+            or ctrl.cfg.keep_previous_elites else 0)
+        obs = rng.normal(size=(P, env.obs_dim)).astype(np.float32)
+        act = rng.uniform(-1, 1, (P, env.action_dim)).astype(np.float32)
+        on = lambda a, dev: torch.as_tensor(a, device=dev)
+        if isinstance(card, RSSMModel):
+            h = rng.normal(size=(P, card.det_dim)).astype(np.float32)
+            z = rng.normal(size=(P, card.stoch_dim)).astype(np.float32)
+            n = rng.standard_normal((P, card.stoch_dim)).astype(np.float32)
+            outs = [m.apply_fn(m.params, {"h": on(h, m.device), "z": on(z, m.device)}, None,
+                               on(act, m.device), normals=on(n, m.device)) for m in (card, cpu)]
+            pairs = [(outs[0][0][k], outs[1][0][k], k) for k in ("h", "z")]
+            L, B = card.seq_length, card.batch_size
+            batch = [a.astype(np.float32) for a in (
+                rng.normal(size=(L, B, env.obs_dim)), rng.uniform(-1, 1, (L, B, env.action_dim)),
+                rng.normal(size=(L, B)), rng.standard_normal((L, B, card.stoch_dim)))]
+            losses = [m.fit_step(*(on(a, m.device) for a in batch))[0] for m in (card, cpu)]
+            lr = card.learning_rate
+        else:
+            members = rng.integers(0, card.ensemble_size, P)
+            outs = [m.apply_fn(m.params, {}, on(obs, m.device), on(act, m.device),
+                               members=on(members, m.device)) for m in (card, cpu)]
+            pairs = []
+            N = card.batch_size
+            x = rng.normal(size=(N, card.in_dim)).astype(np.float32)
+            t = rng.normal(size=(N, card.out_dim)).astype(np.float32)
+            idx = rng.integers(0, N, (card.ensemble_size, N))
+            losses = [m.fit_epoch(on(x, m.device), on(t, m.device), on(idx, m.device))[0]
+                      for m in (card, cpu)]
+            lr = card.learning_rate
+        pairs += [(outs[0][1], outs[1][1], "next obs"), (outs[0][2], outs[1][2], "reward")]
+        errs = [_max_err(a, b, f"{name} {what}") for a, b, what in pairs]
+        loss_err = _max_err(losses[0], losses[1], f"{name} training loss")
+        log(f"[learned] {name}: {type(card).__name__} "
+            f"{sum(p.numel() for p in card.net.parameters())} weights; apply_fn at P = {P} on "
+            f"the card against the CPU: max |err| {max(errs):.3e} "
+            f"({', '.join(f'{w} {e:.2e}' for (_, _, w), e in zip(pairs, errs))}); training "
+            f"loss {float(losses[1]):.4f}, |err| {loss_err:.3e}")
+        worst = max(worst, *errs, _steps_agree(card, cpu, lr, name))
+    return worst
+
+
+@contextlib.contextmanager
+def timed_train(cls):
+    """Seconds of each ``cls.train`` call, synchronised, while inside."""
+    times, train = [], cls.train
+
+    def timed(self, buffer):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train(self, buffer)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    cls.train = timed
+    try:
+        yield times
+    finally:
+        cls.train = train
+
+
+def phase_learned_driver(device, workdir: str):
+    """``icem_torch.main.run`` on the five learned-model settings, cut as
+    LEARNED_RUNS says, under a temporary model_dir: the model trains after
+    each iteration and the planner plans with its live weights. Each run:
+    kernel B1's launches (the planar envs' real steps; counts set to 0 just
+    before, read just after), ms per control step, train seconds per
+    iteration, the return, the host waits, and the device idle share over a
+    short episode of the same settings. Returns the launches of each kernel."""
+    from icem_torch import main as tmain
+    from icem_torch.envs.planar_base import PlanarEnv
+    from icem_torch.models import forward_model_from_string
+    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime.config import apply_overrides, resolve_settings
+    from icem_torch.runtime.rollout import RolloutManager
+
+    totals = {"planar": 0, "spatial": 0}
+    for i, (name, overrides, idle_steps) in enumerate(LEARNED_RUNS):
+        tag = name.replace("/", "_")
+        params = apply_overrides(resolve_settings(f"settings/{name}.json"), [
+            *LEARNED_CUTS, *overrides, f"model_dir={os.path.join(workdir, f'learned_{tag}')}",
+            f"seed={SEED}"])
+        env, model, _ = learned_model(name, device, *LEARNED_CUTS, *overrides)
+        steps = (params.initial_number_of_rollouts
+                 + params.training_iterations * params.number_of_rollouts) \
+            * params.rollout_params.task_horizon
+        expected = steps * env.action_repeat if isinstance(env, PlanarEnv) else 0
+        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+        with host_waits() as waits, timed_train(type(model)) as train_s:
+            t0 = time.perf_counter()
+            info = tmain.run(params, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+        for k in totals:
+            totals[k] += launches[k]
+        check(info["step"] == [0, 1], f"{name}: iterations {info['step']}")
+        check(launches == {"planar": expected, "spatial": 0},
+              f"{name}: launches {launches}, expected {expected} of the planar kernel")
+        rets = info["train_mean_return"]
+        check(bool(np.all(np.isfinite(rets))), f"{name}: non-finite returns {rets}")
+        logged = [json.loads(line) for line in open(os.path.join(params.model_dir,
+                                                                 "metrics.jsonl"))]
+        trained = {e["key"]: [] for e in logged if e["key"].startswith("model_")}
+        for e in logged:
+            if e["key"] in trained:
+                trained[e["key"]].append(e["value"])
+        check(bool(trained) and all(len(v) == 2 and np.all(np.isfinite(v))
+                                    for v in trained.values()),
+              f"{name}: the model's training metrics {trained}")
+        check("forward_model" in os.listdir(os.path.join(params.model_dir,
+                                                         "checkpoints_latest")),
+              f"{name}: no forward_model in the checkpoint")
+        check(len(train_s) == 2, f"{name}: {len(train_s)} train() calls")
+        exec_s = info["train_exec_time"]
+        per_iter = [e * 1e3 / (n * params.rollout_params.task_horizon) for e, n in
+                    zip(exec_s, (params.initial_number_of_rollouts, params.number_of_rollouts))]
+        log(f"[learned] settings/{name}.json {' '.join(LEARNED_CUTS + overrides)}: "
+            f"{type(model).__name__}, fuse_on_device {params.rollout_params.fuse_on_device}; "
+            f"returns per iteration {', '.join(f'{r:.2f}' for r in rets)} (random, then the "
+            f"planner after one training); ms per control step, random then planner: "
+            f"{per_iter[0]:.3f}, {per_iter[1]:.3f}; train s per iteration "
+            f"{', '.join(f'{t:.3f}' for t in train_s)}; last training "
+            f"{ {k: round(v[-1], 4) for k, v in trained.items()} }; run() {wall:.3f} s; "
+            f"launches {launches} ({env.action_repeat} a control step of the real env); "
+            f"{waits[0]} host waits for the card in the whole run")
+        log(f"[learned]   host waits by source line: {dict(waits[1].most_common(6))}")
+
+        # the device idle share over a short episode of the planner, with
+        # the model's fresh weights
+        ctrl = tmain.get_controllers(params, env, model, device)[1]
+        rm = RolloutManager(env, {**params.rollout_params, "task_horizon": idle_steps},
+                            device=device)
+        rm.sample(ctrl)  # first launches at these shapes: cuBLAS handles, caches
+        profile_window(lambda: rm.sample(ctrl), idle_steps, f"learned {i}_{tag}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # the experiment driver: python -m icem_torch.main's run() on shipped settings
 
 # (settings, overrides, kernel the run launches or None, control steps of
@@ -1344,7 +1587,7 @@ DRIVER_RUNS = (
     # reaches the goal at step 106 with seed 0; a device episode plans on
     # after the end, frozen)
     ("mountain_car/i-cem-best", ("training_iterations=1", "rollout_params.task_horizon=120"),
-     None, 120, 0, 90.0, None, 3),
+     None, 120, 0, 90.0, None, 2),
     # action repeat 8 and the scanned loop, 590-820 ms a control step (960
     # raw steps a plan step): 1 of the 2 iterations, its episode cut from
     # 125 to 10 steps, to keep the script near 600 s
@@ -1357,9 +1600,12 @@ DRIVER_RUNS = (
     # the goal-conditioned analytic envs as shipped, no kernel; their
     # success rates are printed beside the returns
     ("fetch_reach/i-cem-blitz", (), None, 50, 0, None, None, 10),
-    ("fpp/i-cem-blitz", (), None, 50, 0, None, None, 5),
-    ("door/i-cem-blitz", (), None, 200, 0, None, None, 5),
-    ("relocate/i-cem-blitz", (), None, 200, 0, None, None, 5),
+    # FPP, Door and Relocate over 3 steps of idle window, the mountain car
+    # over 2, and Door and Relocate 100 of their 200 steps: the learned-model
+    # phase's share of the script's time
+    ("fpp/i-cem-blitz", (), None, 50, 0, None, None, 3),
+    ("door/i-cem-blitz", ("rollout_params.task_horizon=100",), None, 100, 0, None, None, 3),
+    ("relocate/i-cem-blitz", ("rollout_params.task_horizon=100",), None, 100, 0, None, None, 3),
     # a random initial phase (the learned-model settings' first iteration)
     # in front of the HalfCheetah planner, 200-step episodes: the random
     # policy launches only the real step
@@ -1368,6 +1614,25 @@ DRIVER_RUNS = (
                                          "rollout_params.task_horizon=200"), "planar",
      2 * 200, 200 + 4 * 200, 0.0, None, 20),
 )
+
+
+@contextlib.contextmanager
+def host_waits():
+    """Counts the operations that make the host wait for the card, by
+    torch.cuda.set_sync_debug_mode("warn"): each one warns. Yields a list
+    that receives the count and the count per source line."""
+    counted = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield counted
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    waits = [w for w in caught if "synchroniz" in str(w.message)]
+    counted.append(len(waits))
+    counted.append(collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in waits))
 
 
 def phase_driver_times(device, planar_shapes, spatial_cases):
@@ -1407,33 +1672,12 @@ def phase_driver(device, workdir: str):
     env steps/s (from the run's own train_exec_time, which times the
     episodes), the host waits for the card it made, and the device idle
     share over a short episode of the same settings."""
-    import contextlib
-    import os
     import pickle
-    import warnings
 
     from icem_torch import main as tmain
     from icem_torch.ops import planar_rollout, spatial_rollout
     from icem_torch.runtime.config import apply_overrides, resolve_settings
     from icem_torch.runtime.rollout import RolloutManager
-
-    @contextlib.contextmanager
-    def host_waits():
-        """Counts the operations that make the host wait for the card, by
-        torch.cuda.set_sync_debug_mode("warn"): each one warns. Yields a list
-        that receives the count and the count per source line."""
-        counted = []
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                yield counted
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        waits = [w for w in caught if "synchroniz" in str(w.message)]
-        counted.append(len(waits))
-        counted.append(collections.Counter(
-            f"{os.path.relpath(w.filename)}:{w.lineno}" for w in waits))
 
     with host_waits() as probe:  # the counter sees a read-back
         float(torch.ones((), device=device))
@@ -1510,8 +1754,6 @@ def phase_driver_resume(device, workdir: str):
     run with load "auto" that continues at iteration 2; and a controller
     saved mid-episode on the card and loaded into a fresh one gives the same
     next action to the bit."""
-    import os
-
     from icem_torch import main as tmain
     from icem_torch.runtime.config import apply_overrides, resolve_settings
 
@@ -1623,16 +1865,21 @@ def main() -> int:
                        [(ant, *CEM_STD_SHAPE), (ant, *RANDOM_SHAPE), (ant, 64, 1)])
     other = phase_other_controllers(device)
     log(f"[wall] {time.perf_counter() - t_start:.1f} s: the other controllers")
+    lerr = phase_learned_models_vs_cpu(device)
     with tempfile.TemporaryDirectory() as workdir:
+        learned = phase_learned_driver(device, workdir)
+        log(f"[wall] {time.perf_counter() - t_start:.1f} s: the learned models (card against "
+            f"CPU max |err| {lerr:.3e})")
         driver = phase_driver(device, workdir)
         phase_driver_resume(device, workdir)
     log(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s after start-up")
     # each path's launches, read just after it ran with the counts at 0
-    launches = {k: driver[k] + other[k] for k in driver}
+    launches = {k: driver[k] + other[k] + learned[k] for k in driver}
     launches["planar"] += path["launches"]
     launches["spatial"] += spath["launches"]
     log(f"[launches] main paths: planar {path['launches']}, spatial {spath['launches']}; "
-        f"the other controllers {other}; the driver runs {driver}")
+        f"the other controllers {other}; the learned-model runs {learned}; the driver runs "
+        f"{driver}")
 
     a = stimes[ant.name]
     log(json.dumps({"kernels": [{

@@ -20,6 +20,7 @@ makes no host round trip.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -134,12 +135,15 @@ def init_state(cfg: CemStdConfig, generator: torch.Generator) -> CemStdState:
 
 
 def plan_step(cfg: CemStdConfig, predict_fn, cost_fn, pstate: CemStdState, obs,
-              model_state) -> CemPlanResult:
+              model_state, model_params=None) -> CemPlanResult:
     """One env step of vanilla-CEM planning: opt_iterations rounds of
     sample, roll out, rank and refit, then execute and shift.
 
     ``best_*`` are the LAST iteration's argmin, not the best over all
-    iterations, as in the JAX package."""
+    iterations, as in the JAX package. ``model_params``: a learned model's
+    weights, bound into its ``apply_fn`` (see icem.plan_step)."""
+    if model_params is not None:
+        predict_fn = partial(predict_fn, model_params)
     mean, std, gen = pstate
     low, high = cfg.bounds(mean.device)
     shape = (cfg.num_simulated_trajectories, cfg.horizon, cfg.action_dim)
@@ -249,12 +253,11 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
             self.check_model_consistency(state)
         self._model_state = self.forward_model.got_actual_observation_and_env_state(
             observation=obs, env_state=state, model_state=self._model_state)
-        result = plan_step(self.cfg, self.forward_model.predict_fn, self.env.cost_fn,
-                           self._pstate, obs, self._model_state)
+        result = plan_step(self.cfg, self._planner_fn(), self.env.cost_fn, self._pstate, obs,
+                           self._model_state, self.live_model_params)
         self._pstate = result.state
         self.last_expected_cost = result.expected_cost
-        if self.verbose:
-            self._advance_model(obs, result.action)
+        self._after_action(obs, result.action)
         return result.action.cpu().numpy()
 
     # -- functional interface for device-side episode loops ------------------
@@ -264,19 +267,15 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
     def functional_plan(self):
         """(pstate, obs, env_state, model_params=None) -> (action, pstate'),
         on device tensors and with no host round trip (see MpcICem)."""
-        cfg, predict_fn, cost_fn = self.cfg, self.forward_model.predict_fn, self.env.cost_fn
+        cfg, planner_fn, cost_fn = self.cfg, self._planner_fn(), self.env.cost_fn
         init_model_state = self.forward_model.init_model_state
 
         def plan(pstate, obs, env_state, model_params=None):
-            res = plan_step(cfg, predict_fn, cost_fn, pstate, obs,
-                            init_model_state(obs, env_state))
+            res = plan_step(cfg, planner_fn, cost_fn, pstate, obs,
+                            init_model_state(obs, env_state), model_params)
             return res.action, res.state
 
         return plan
-
-    @property
-    def live_model_params(self):
-        return None
 
     def train(self, buffer):
         return {}

@@ -27,7 +27,7 @@ of an episode masks its missing elites with a Python flag.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -35,7 +35,7 @@ import torch
 
 from icem_torch.controllers.mpc_common import ModelConsistencyMixin, PlannerCheckpointMixin
 from icem_torch.device import indexed, on_device, resolve_device
-from icem_torch.models.base import rollout_open_loop, trajectory_cost
+from icem_torch.models.base import batch_tree, rollout_open_loop, trajectory_cost, unbatch_tree
 from icem_torch.ops.colored_noise import sample_colored_action_noise
 from icem_torch.runtime.seeding import Seeding
 
@@ -214,15 +214,19 @@ def best_candidate(cand_actions, cand_costs, cand_last_obs):
 
 
 def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
-              model_state) -> PlanResult:
+              model_state, model_params=None) -> PlanResult:
     """One environment step of iCEM planning.
 
     predict_fn: batched (model_state, obs, action) -> (model_state, obs,
-                reward), optionally with a whole-horizon ``.rollout``.
+                reward), optionally with a whole-horizon ``.rollout``. With
+                ``model_params`` it is a learned model's ``apply_fn``, which
+                takes them first: the weights the caller reads at each call.
     cost_fn:    batched (obs, act, next_obs) -> cost.
     obs:        [obs_dim] current observation.
     model_state: forward-model state synced to reality.
     """
+    if model_params is not None:
+        predict_fn = partial(predict_fn, model_params)
     if cfg.cem_loop == "scan":
         return _plan_step_scan(cfg, predict_fn, cost_fn, pstate, obs, model_state)
     mean, std = pstate.mean, pstate.std
@@ -299,7 +303,7 @@ def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
 
 
 def _plan_step_scan(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState,
-                    obs, model_state) -> PlanResult:
+                    obs, model_state, model_params=None) -> PlanResult:
     """``plan_step`` with every CEM iteration at one population, n_0 fresh
     rows plus E tail rows (``cfg.cem_loop == "scan"``).
 
@@ -317,7 +321,10 @@ def _plan_step_scan(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState,
 
     Noise is drawn in the JAX order: n_0 fresh rows, then E rows for the
     shift at every iteration (their last step is used at i = 0 only).
+    ``model_params`` as in ``plan_step``.
     """
+    if model_params is not None:
+        predict_fn = partial(predict_fn, model_params)
     E = cfg.elites_kept
     schedule = cfg.population_schedule
     n0 = schedule[0]
@@ -508,8 +515,8 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
         model_obs = []
         ms, ob = self._model_state, obs
         for a in result.best_actions:
-            ms, ob, _ = self.forward_model.predict_fn(ms[None], ob[None], a[None])
-            ms, ob = ms[0], ob[0]
+            ms, ob, _ = self.forward_model.predict_fn(batch_tree(ms), ob[None], a[None])
+            ms, ob = unbatch_tree(ms), ob[0]
             model_obs.append(ob)
         model_obs = torch.stack(model_obs).cpu().numpy()
         env_obs = env_obs.cpu().numpy()
@@ -531,14 +538,13 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
             self.check_model_consistency(state)
         self._model_state = self.forward_model.got_actual_observation_and_env_state(
             observation=obs, env_state=state, model_state=self._model_state)
-        result = plan_step(self.cfg, self.forward_model.predict_fn, self.env.cost_fn,
-                           self._pstate, obs, self._model_state)
+        result = plan_step(self.cfg, self._planner_fn(), self.env.cost_fn, self._pstate, obs,
+                           self._model_state, self.live_model_params)
         self._pstate = result.state
         self.last_expected_cost = result.expected_cost
         if self.do_visualize_plan:
             self.visualize_plan(obs, state, result)
-        if self.verbose:
-            self._advance_model(obs, result.action)
+        self._after_action(obs, result.action)
         return result.action.cpu().numpy()
 
     def end_of_rollout(self, total_time, total_return, mode):
@@ -550,24 +556,19 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
 
     def functional_plan(self):
         """(pstate, obs, env_state, model_params=None) -> (action, pstate'),
-        on device tensors and with no host round trip. ``model_params`` is
-        the learned-model weights argument of the JAX package's plan; the
-        port has ground-truth models only, so it is None."""
-        cfg, predict_fn, cost_fn = self.cfg, self.forward_model.predict_fn, self.env.cost_fn
+        on device tensors and with no host round trip. A learned model's
+        weights enter as ``model_params`` (``live_model_params``); the model
+        state is synced from the observation at every step, as in the JAX
+        package."""
+        cfg, planner_fn, cost_fn = self.cfg, self._planner_fn(), self.env.cost_fn
         init_model_state = self.forward_model.init_model_state
 
         def plan(pstate, obs, env_state, model_params=None):
-            res = plan_step(cfg, predict_fn, cost_fn, pstate, obs,
-                            init_model_state(obs, env_state))
+            res = plan_step(cfg, planner_fn, cost_fn, pstate, obs,
+                            init_model_state(obs, env_state), model_params)
             return res.action, res.state
 
         return plan
-
-    @property
-    def live_model_params(self):
-        """Learned-model weights to feed ``functional_plan``: none for the
-        ground-truth models."""
-        return None
 
     def train(self, buffer):
         return {}

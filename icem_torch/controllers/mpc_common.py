@@ -3,7 +3,8 @@
 Counterpart of ``icem_tpu/controllers/mpc_common.py``: every model-based MPC
 controller (iCEM, vanilla CEM, random shooting) can check that its
 ground-truth forward model's state still agrees with the live env state
-(``verbose``), and the CEM planners share their checkpoint format.
+(``verbose``), advances a stateful model by each executed action, and the
+CEM planners share their checkpoint format.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import os
 import pickle
 from dataclasses import asdict
 
+from icem_torch.models.base import batch_tree, unbatch_tree
 from icem_torch.runtime.checkpoint import pack_pytree, unpack_pytree
 
 CONSISTENCY_TOL = 1e-5
@@ -22,17 +24,22 @@ class ModelConsistencyMixin:
     ``_model_state`` synced to reality and hold ``self.env`` and
     ``self.forward_model``.
 
-    The port's controllers re-sync the ground-truth model from reality at
-    every step; under ``verbose`` they also advance it by the executed action
-    (``_advance_model``), so the next step's check compares the model's
-    prediction with the real state, as the JAX controllers do.
+    The JAX controllers advance the synced model state by every executed
+    action. The port does so where it matters (``_after_action``): for a
+    ``stateful`` model (the RSSM, whose filter keeps the advanced ``h``),
+    and under ``verbose``, so that the next step's check compares the
+    ground-truth model's prediction with the real state. Otherwise the next
+    sync replaces the state and the advance would only cost a step of the
+    model.
     """
 
     def check_model_consistency(self, env_state):
         """Warn if the forward model's state differs from the live env state
         by more than ``CONSISTENCY_TOL``. Returns the difference (one host
-        read), or None where no env state or model state is held."""
-        if env_state is None or self._model_state is None:
+        read), or None where no env state or model state is held or the
+        model is learned (its state is not an env state)."""
+        if (env_state is None or self._model_state is None
+                or self.forward_model.apply_fn is not None):
             return None
         diff = float(self.env.compute_state_difference(env_state, self._model_state))
         if diff > CONSISTENCY_TOL:
@@ -42,9 +49,26 @@ class ModelConsistencyMixin:
     def _advance_model(self, obs, action):
         """Step the synced model state by the executed action."""
         if self._model_state is not None:
-            ms, _, _ = self.forward_model.predict_fn(self._model_state[None], obs[None],
+            ms, _, _ = self.forward_model.predict_fn(batch_tree(self._model_state), obs[None],
                                                      action[None])
-            self._model_state = ms[0]
+            self._model_state = unbatch_tree(ms)
+
+    def _planner_fn(self):
+        """What the planner rolls out: a learned model's ``apply_fn``, bound
+        to the weights it is given, else the model's ``predict_fn``."""
+        fm = self.forward_model
+        return fm.predict_fn if fm.apply_fn is None else fm.apply_fn
+
+    @property
+    def live_model_params(self):
+        """The learned model's live weights to feed the planner; None for
+        the ground-truth models."""
+        return self.forward_model.params
+
+    def _after_action(self, obs, action):
+        """The model advance after an executed action (see the class)."""
+        if self.verbose or self.forward_model.stateful:
+            self._advance_model(obs, action)
 
 
 class PlannerCheckpointMixin:

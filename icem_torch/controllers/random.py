@@ -155,7 +155,9 @@ class MpcRandom(ModelConsistencyMixin):
         return self.num_sim_traj * self.horizon
 
     def plan_step(self, generator: torch.Generator, obs, model_state):
-        """(first action of the cheapest sequence, its cost)."""
+        """(first action of the cheapest sequence, its cost), through the
+        model's ``predict_fn`` (a learned model's is bound to its live
+        weights)."""
         low, high = self.env.action_space.bounds(obs.device)
         actions = sample_held_action_sequences(generator, low, high, self.num_sim_traj,
                                                self.horizon, self.action_change_frequency)
@@ -192,8 +194,7 @@ class MpcRandom(ModelConsistencyMixin):
             observation=obs, env_state=state, model_state=self._model_state)
         action, self.last_expected_cost = self.plan_step(self._generator, obs,
                                                          self._model_state)
-        if self.verbose:
-            self._advance_model(obs, action)
+        self._after_action(obs, action)
         return action.cpu().numpy()
 
     # -- functional interface for device-side episode loops ------------------
@@ -211,6 +212,8 @@ class MpcRandom(ModelConsistencyMixin):
 
     @property
     def live_model_params(self):
+        """None, as in the JAX package: the plan reads a learned model's live
+        weights through its ``predict_fn``."""
         return None
 
     def train(self, buffer):

@@ -1,11 +1,12 @@
 """Carry state from plain arrays into the port.
 
-The ground-truth model has no learned weights: what a run carries is the
-physics model's constants and the planner's state. Both arrive here as dicts
-of plain values (numpy arrays, Python scalars and tuples), for example a
-model's fields from ``dataclasses.asdict`` or a planner state's
-``_asdict()``, converted to numpy. Float constants are rounded to float32
-once, as they are where the JAX package meets them with x64 off.
+What a run carries is the physics model's constants, the planner's state and
+the learned models' weights. They arrive here as dicts of plain values
+(numpy arrays, Python scalars and tuples), for example a model's fields from
+``dataclasses.asdict``, a planner state's ``_asdict()`` converted to numpy,
+or the ``"params"`` that the JAX package's ``EnsembleModel.save`` /
+``RSSMModel.save`` pickle. Float constants are rounded to float32 once, as
+they are where the JAX package meets them with x64 off.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from icem_torch.controllers.icem import ICemState
 from icem_torch.envs.physics.planar import PlanarModel
 from icem_torch.envs.physics.spatial import SpatialModel
+from icem_torch.runtime.checkpoint import tree_map
 
 _INT_TUPLES = ("parent", "geom_body", "actuator_dof")
 
@@ -72,3 +74,31 @@ def icem_state_from_arrays(fields: dict, device, generator: torch.Generator) -> 
         have_elites=bool(np.asarray(fields["have_elites"])),
         generator=generator,
     )
+
+
+def _params_from_arrays(params: dict, keys: tuple, device) -> dict:
+    unknown, missing = set(params) - set(keys), set(keys) - set(params)
+    if unknown or missing:
+        raise ValueError(f"params keys: unknown {sorted(unknown)}, missing {sorted(missing)}")
+    device = torch.device(device)
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32), device=device),
+                    {k: params[k] for k in keys})
+
+
+def ensemble_params_from_arrays(params: dict, device) -> dict:
+    """An ``EnsembleModel``'s params on ``device`` from the JAX package's
+    params dict as numpy: ``net`` (a list of layers ``{"w": [E, n_in,
+    n_out], "b": [E, n_out]}``), ``max_logvar``, ``min_logvar``, ``in_mu``,
+    ``in_std``."""
+    return _params_from_arrays(params, ("net", "max_logvar", "min_logvar", "in_mu", "in_std"),
+                               device)
+
+
+def rssm_params_from_arrays(params: dict, device) -> dict:
+    """An ``RSSMModel``'s params on ``device`` from the JAX package's params
+    dict as numpy: the layer lists ``encoder``, ``prior``, ``posterior``,
+    ``decoder``, ``reward``, the GRU ``{"wx", "wh", "b"}`` and the
+    normalizers ``obs_mu``, ``obs_std``, ``rew_mu``, ``rew_std``."""
+    return _params_from_arrays(params, ("encoder", "gru", "prior", "posterior", "decoder",
+                                        "reward", "obs_mu", "obs_std", "rew_mu", "rew_std"),
+                               device)

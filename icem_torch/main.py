@@ -91,7 +91,7 @@ def run(params, device=None) -> dict:
     forward_model = None
     if params.get("forward_model", "none") != "none":
         forward_model = forward_model_from_string(params.forward_model)(
-            env=env, **params.get("forward_model_params", {}))
+            env=env, device=device, **params.get("forward_model_params", {}))
 
     initial_controller, main_controller = get_controllers(params, env, forward_model, device)
 

@@ -1,8 +1,8 @@
 """Forward-model registry.
 
 Counterpart of ``icem_tpu/models/__init__.py``: settings files name a model
-by the same string. It holds the models ported so far; any other name raises
-``ImportError`` naming the known ones.
+by the same string; any other name raises ``ImportError`` naming the known
+ones.
 """
 
 from importlib import import_module
@@ -10,6 +10,8 @@ from importlib import import_module
 _MODEL_REGISTRY = {
     "GroundTruthModel": ("icem_torch.models.ground_truth", "GroundTruthModel"),
     "ParallelGroundTruthModel": ("icem_torch.models.ground_truth", "ParallelGroundTruthModel"),
+    "EnsembleModel": ("icem_torch.models.ensemble", "EnsembleModel"),
+    "RSSM": ("icem_torch.models.rssm", "RSSMModel"),
 }
 
 

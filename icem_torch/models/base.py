@@ -12,6 +12,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from icem_torch.runtime.checkpoint import tree_map
+
 
 class TrajectoryBatch(NamedTuple):
     """A batch of simulated trajectories, time-major.
@@ -30,6 +32,22 @@ class TrajectoryBatch(NamedTuple):
     final_model_state: Any
 
 
+def broadcast_model_state(model_state, population: int):
+    """Replicate a single model state (a tensor or a dict of them) across a
+    population axis, as views."""
+    return tree_map(lambda x: x.expand((population,) + tuple(x.shape)), model_state)
+
+
+def batch_tree(model_state):
+    """A single model state as a population of one."""
+    return tree_map(lambda x: x[None], model_state)
+
+
+def unbatch_tree(model_state):
+    """The one member of a population of one."""
+    return tree_map(lambda x: x[0], model_state)
+
+
 def rollout_open_loop(predict_fn, model_state, obs, actions) -> TrajectoryBatch:
     """Roll a population of open-loop action sequences through a model.
 
@@ -46,7 +64,7 @@ def rollout_open_loop(predict_fn, model_state, obs, actions) -> TrajectoryBatch:
     # state is unbatched too
     if obs.ndim == 1:
         obs = obs.expand((p,) + tuple(obs.shape))
-        model_state = model_state.expand((p,) + tuple(model_state.shape))
+        model_state = broadcast_model_state(model_state, p)
 
     # whole-horizon fast path (the planar and spatial GT envs); it returns
     # None where it declines (action repeat), and the step loop runs instead
@@ -95,7 +113,21 @@ def trajectory_cost(cost_fn, traj: TrajectoryBatch, mode: str = "sum",
 
 class ForwardModel:
     """Forward-model interface: ``predict_fn`` (batched over a leading
-    population axis) and the sync of its state to reality."""
+    population axis) and the sync of its state to reality.
+
+    Learned models also expose ``params``, their live weights as a dict of
+    tensors that share storage with the trained ones, and
+    ``apply_fn(params, model_state, obs, action)``, the core with the weights
+    as its first argument: the planners bind the weights they are given.
+    ``stateful``: the model state carries what the model learned of the past
+    (the RSSM's ``h``), so the controllers advance it by each executed
+    action before the next sync.
+    """
+
+    params = None
+    apply_fn = None
+    version = 0  # bumped by train() and load()
+    stateful = False
 
     def __init__(self, *, env, **kwargs):
         self.env = env

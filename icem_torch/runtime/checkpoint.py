@@ -37,14 +37,14 @@ class _PackedGenerator:
         self.device_type = device_type
 
 
-def _tree_map(fn, tree):
+def tree_map(fn, tree):
     """``fn`` over the leaves of nested tuples, NamedTuples, lists and dicts."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_tree_map(fn, x) for x in tree))
+        return type(tree)(*(tree_map(fn, x) for x in tree))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, x) for x in tree)
+        return type(tree)(tree_map(fn, x) for x in tree)
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
 
 
@@ -59,7 +59,7 @@ def pack_pytree(tree):
             return x.detach().cpu().numpy()
         return x
 
-    return _tree_map(f, tree)
+    return tree_map(f, tree)
 
 
 def unpack_pytree(tree, device):
@@ -80,7 +80,7 @@ def unpack_pytree(tree, device):
             return torch.from_numpy(x).to(device)
         return x
 
-    return _tree_map(f, tree)
+    return tree_map(f, tree)
 
 
 class MainState:

@@ -173,13 +173,14 @@ class RolloutManager:
             chunk = horizon
         stream = self._episode_stream(mode)
         plan = policy.functional_plan()
-        model_params = getattr(policy, "live_model_params", None)
-        return [self._device_episode(policy, plan, model_params, mode, f"{stream}/{i}", chunk)
+        return [self._device_episode(policy, plan, mode, f"{stream}/{i}", chunk)
                 for i in range(no_rollouts)]
 
-    def _device_episode(self, policy, plan, model_params, mode: str, stream: str,
-                        chunk: int) -> Rollout:
+    def _device_episode(self, policy, plan, mode: str, stream: str, chunk: int) -> Rollout:
         env, device, horizon = self.env, self.device, self.task_horizon
+        # a learned model's weights as they are at the episode's start: the
+        # tensors share the trained ones' storage, so they are the latest
+        model_params = getattr(policy, "live_model_params", None)
         state, obs = env.reset_with_mode(Seeding.generator_for(f"{stream}/env", device), mode)
         pstate = policy.init_plan_state(env.obs_dim,
                                         Seeding.generator_for(f"{stream}/plan", device))

@@ -118,10 +118,12 @@ def test_packed_generator_restores_only_on_its_device_type():
 
 def test_unported_names_and_options_raise(tmp_path):
     # every controller string resolves since the other controllers were
-    # ported (tests/test_torch_controllers.py); the learned models do not
-    for name in ("EnsembleModel", "RSSM"):
-        with pytest.raises(ImportError, match="GroundTruthModel"):
-            forward_model_from_string(name)
+    # ported (tests/test_torch_controllers.py), and both learned models
+    # since they were (tests/test_torch_ensemble.py, tests/test_torch_rssm.py)
+    for name, cls in (("EnsembleModel", "EnsembleModel"), ("RSSM", "RSSMModel")):
+        assert forward_model_from_string(name).__name__ == cls
+    with pytest.raises(ImportError, match="GroundTruthModel"):
+        forward_model_from_string("NoSuchModel")
     with pytest.raises(NotImplementedError, match="video"):
         tmain.run(_params("halfcheetah", tmp_path / "rec", "rollout_params.record=true"),
                   device="cpu")

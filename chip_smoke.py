@@ -53,7 +53,7 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     task_horizon 210 (5 episodes, 2 chunks each), each as shipped otherwise
     and under a
     temporary model_dir: launches, return, ms per control step, env steps/s,
-    host waits for the card, and the device idle share over a 50-step
+    host waits for the card, and the device idle share over a 20-step
     episode;
 12. resumes a HalfCheetah run from its checkpoint, and reloads a controller
     saved on the card: its next action must be the same to the bit;
@@ -67,12 +67,12 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     beside its bound;
 14. runs ``MpcICem.get_action`` through the registry on Reacher, PlanarAnt,
     PlanarHumanoidStandup and the swimmer at pop 2,048, h = 30;
-15. runs the driver on settings/hopper/i-cem-blitz.json (1,000 steps, 5
-    launches a step), pendulum/i-cem-blitz.json, mountain_car/i-cem-best.json
-    (1 of its 3 iterations, 120 of its 200 steps) and
-    planet/cartpole_swingup_gt.json (action repeat 8; 1 of 2 iterations, 10
-    of 125 steps), the last three analytic envs without a kernel, as in
-    step 11;
+15. runs the driver on settings/hopper/i-cem-blitz.json (500 of its 1,000
+    steps, 5 launches a step), pendulum/i-cem-blitz.json,
+    mountain_car/i-cem-best.json (1 of its 3 iterations, 110 of its 200
+    steps) and planet/cartpole_swingup_gt.json (action repeat 8; 1 of 2
+    iterations, 5 of 125 steps), the last three analytic envs without a
+    kernel, as in step 11;
 16. holds both kernels against their plain versions at the shapes the other
     controllers launch: vanilla CEM as settings/halfcheetah_running/
     cem-std.json ships it (P = 97, h = 30) and random shooting at the JAX
@@ -88,16 +88,32 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     cheetah, cart-pole and reacher), holds one ``apply_fn`` step at the
     planner's population and one update on an injected batch against a CPU
     copy of the same weights, then runs the driver on each setting, cut to
-    1 random initial episode and 1 training iteration (HalfCheetah 200
-    steps, the pendulum's 120 as shipped, the planet envs 50 control
-    steps and 20 of their 100 updates a training): the model trains after each iteration and the planner plans
-    with its live weights; kernel B1 runs the planar envs' real steps;
+    1 random initial episode and 1 training iteration (HalfCheetah 100
+    steps, the pendulum's 120 as shipped, the planet envs 25 control
+    steps and 20 of their 100 updates a training): the model trains after
+    each iteration and the planner plans with its live weights; kernel B1
+    runs the planar envs' real steps;
 19. runs the driver on settings/halfcheetah_running/cem-std.json (1,000
-    steps), fetch_reach and fpp/i-cem-blitz.json as shipped, door and
-    relocate/i-cem-blitz.json with 100 of their 200 steps (returns beside
-    success rates), and HalfCheetah with a ``random``
+    steps), fetch_reach/i-cem-blitz.json as shipped, fpp with 25 of its 50
+    steps, door and relocate/i-cem-blitz.json with 50 of their 200 steps
+    (returns beside success rates), and HalfCheetah with a ``random``
     initial phase (200-step episodes), as in step 11; the host waits of
-    every run are printed by source line.
+    every run are printed by source line;
+20. [autodiff]: the autodiff engines (``envs/physics/planar.py``,
+    ``spatial.py``) on the card, for each of the six planar shapes, Ant3D
+    and HumanoidStandup3D: one control step of 4 states against the same
+    code on the CPU and against kernel B1 / B2 at P = 1, h = 1 from the same
+    states, and ms per step; the energy-audit battery of
+    tests/test_energy_pump.py on the card for HalfCheetah and the Hopper,
+    without and with the energy valve; then 20 real steps of a valve
+    HalfCheetah under MpcICem (the real step on the autodiff engine, the
+    planner on B1);
+21. [video]: the driver on settings/halfcheetah_running/i-cem-blitz.json and
+    ant/i-cem-blitz.json, 20 steps, with rollout_params.record and without:
+    each AVI holds one frame per step and parses; ms per control step
+    recorded and unrecorded, ms per rendered frame, seconds to write an
+    episode's AVI and GIF; then one ``get_action`` with
+    do_visualize_plan="record".
 
 The MpcICem phases build their controllers from the settings files as the
 driver does (``icem_torch.main.get_controllers``).
@@ -1334,13 +1350,13 @@ def phase_other_controllers(device, steps: int = 5):
 # the learned-model settings, each cut to 1 random initial episode and 1
 # training iteration: (settings, overrides beyond those, the steps of the
 # episode the idle share is taken over). The ensembles' epochs as shipped.
-_PLANET_CUTS = ("rollout_params.task_horizon=50", "forward_model_params.train_steps=20")
+_PLANET_CUTS = ("rollout_params.task_horizon=25", "forward_model_params.train_steps=20")
 LEARNED_RUNS = (
-    # the fused device episode; 200 of its 1,000 steps
-    ("halfcheetah_running/ensemble-icem", ("rollout_params.task_horizon=200",), 5),
+    # the fused device episode; 100 of its 1,000 steps
+    ("halfcheetah_running/ensemble-icem", ("rollout_params.task_horizon=100",), 5),
     # the fused device episode, 120 steps as shipped (2 episodes an iteration)
     ("pendulum/ensemble-icem", (), 5),
-    # the host-driven episode loop (fuse_on_device false): 50 control steps
+    # the host-driven episode loop (fuse_on_device false): 25 control steps
     # of 125-250, 20 of the 100 updates a training (about 54 ms each)
     ("planet/cheetah_run", _PLANET_CUTS, 2),
     ("planet/cartpole_swingup", _PLANET_CUTS, 2),
@@ -1562,50 +1578,52 @@ def phase_learned_driver(device, workdir: str):
 # (settings, overrides, kernel the run launches or None, control steps of
 # the whole run, kernel launches of the whole run, the least return it must
 # reach or None for finite only, the index of the root's pitch angle in the
-# observation or None, the steps of the episode the idle share is taken over)
+# observation or None, the steps of the episode the idle share is taken over:
+# 20 for the device-bound runs, 2-10 for the host-bound ones)
 DRIVER_RUNS = (
     # past +-pi/2 the flip penalty of the cost is a constant: the pitch
     # angle tells a running cheetah from a rolling one
-    ("halfcheetah_running/i-cem-blitz", (), "planar", 1000, 4 * 1000, 3000.0, 1, 50),
-    ("ant/i-cem-blitz", (), "spatial", 300, 4 * 300, 300.0, None, 50),
-    ("humanoid/i-cem-blitz", (), "spatial", 300, 4 * 300, None, None, 50),
+    ("halfcheetah_running/i-cem-blitz", (), "planar", 1000, 4 * 1000, 3000.0, 1, 20),
+    ("ant/i-cem-blitz", (), "spatial", 300, 4 * 300, 300.0, None, 20),
+    ("humanoid/i-cem-blitz", (), "spatial", 300, 4 * 300, None, None, 20),
     # 5 episodes of 210 steps exceed SpatialEnv.fused_episode_step_limit
     # (1,000): the rollout manager runs them in 2 chunks of 105 steps
     ("humanoid_standup/i-cem-blitz", ("rollout_params.task_horizon=210",), "spatial",
-     5 * 210, 4 * 5 * 210, None, None, 50),
+     5 * 210, 4 * 5 * 210, None, None, 20),
     # a terminating env: 4 planner launches and the real step's, frozen
     # after termination. Its return is held finite only: whether the hopper
     # falls in its first steps depends on the seed in both packages (the
     # JAX package on the CPU with these settings: seed 0 returns 2.39, seeds
     # 1-3 over 100 steps 95.34, 96.08, 0.45; PERF.md §6)
-    ("hopper/i-cem-blitz", (), "planar", 1000, 5 * 1000, None, None, 20),
+    ("hopper/i-cem-blitz", ("rollout_params.task_horizon=500",), "planar", 500, 5 * 500, None,
+     None, 20),
     # analytic envs, no kernel: the pendulum's 3 iterations of 120 steps,
     # held to its own solve threshold (avg_return_required_to_solve)
     ("pendulum/i-cem-blitz", (), None, 3 * 120, 0, -300.0, None, 10),
     # 180-240 ms a control step (600 small steps of the env a plan step):
-    # 1 of the 3 iterations, its episode cut from 200 to 120 steps (the car
+    # 1 of the 3 iterations, its episode cut from 200 to 110 steps (the car
     # reaches the goal at step 106 with seed 0; a device episode plans on
     # after the end, frozen)
-    ("mountain_car/i-cem-best", ("training_iterations=1", "rollout_params.task_horizon=120"),
-     None, 120, 0, 90.0, None, 2),
+    ("mountain_car/i-cem-best", ("training_iterations=1", "rollout_params.task_horizon=110"),
+     None, 110, 0, 90.0, None, 2),
     # action repeat 8 and the scanned loop, 590-820 ms a control step (960
     # raw steps a plan step): 1 of the 2 iterations, its episode cut from
-    # 125 to 10 steps, to keep the script near 600 s
-    ("planet/cartpole_swingup_gt", ("rollout_params.task_horizon=10", "training_iterations=1"),
-     None, 10, 0, None, None, 2),
+    # 125 to 5 steps, to keep the script near 600 s
+    ("planet/cartpole_swingup_gt", ("rollout_params.task_horizon=5", "training_iterations=1"),
+     None, 5, 0, None, None, 2),
     # vanilla CEM, the paper's baseline, as shipped: pop 97, h 30, 3
     # iterations at P = 97 and the real step (the JAX package's v5e runs
     # return 4,940-4,989: results/QUALITY_r05.json)
-    ("halfcheetah_running/cem-std", (), "planar", 1000, 4 * 1000, 2000.0, 1, 50),
+    ("halfcheetah_running/cem-std", (), "planar", 1000, 4 * 1000, 2000.0, 1, 20),
     # the goal-conditioned analytic envs as shipped, no kernel; their
     # success rates are printed beside the returns
     ("fetch_reach/i-cem-blitz", (), None, 50, 0, None, None, 10),
     # FPP, Door and Relocate over 3 steps of idle window, the mountain car
-    # over 2, and Door and Relocate 100 of their 200 steps: the learned-model
-    # phase's share of the script's time
-    ("fpp/i-cem-blitz", (), None, 50, 0, None, None, 3),
-    ("door/i-cem-blitz", ("rollout_params.task_horizon=100",), None, 100, 0, None, None, 3),
-    ("relocate/i-cem-blitz", ("rollout_params.task_horizon=100",), None, 100, 0, None, None, 3),
+    # over 2, FPP 25 of its 50 steps and Door and Relocate 50 of their 200:
+    # the learned-model, autodiff and video phases' share of the script's time
+    ("fpp/i-cem-blitz", ("rollout_params.task_horizon=25",), None, 25, 0, None, None, 3),
+    ("door/i-cem-blitz", ("rollout_params.task_horizon=50",), None, 50, 0, None, None, 3),
+    ("relocate/i-cem-blitz", ("rollout_params.task_horizon=50",), None, 50, 0, None, None, 3),
     # a random initial phase (the learned-model settings' first iteration)
     # in front of the HalfCheetah planner, 200-step episodes: the random
     # policy launches only the real step
@@ -1794,6 +1812,285 @@ def phase_driver_resume(device, workdir: str):
         f"action to the bit: {np.array2string(a_orig, precision=4)}")
 
 
+# ---------------------------------------------------------------------------
+# the autodiff engines and the tooling
+
+AUTODIFF_P = 2
+# the energy-audit battery of tests/test_energy_pump.py (tests/test_torch_energy_pump.py)
+AUDIT_HORIZON = 12
+
+
+def _autodiff_envs():
+    """Every planar shape (HalfCheetah and PLANAR_ENVS) and both spatial ones."""
+    from icem_torch.envs import env_from_string
+
+    return ([env_from_string("HalfCheetah")] + planar_envs()
+            + [env_from_string("Ant", exclude_current_positions_from_observation=False),
+               env_from_string("HumanoidStandup")])
+
+
+def _engine(model):
+    from icem_torch.envs.physics import planar, spatial
+
+    return spatial if hasattr(model, "axis") else planar
+
+
+def _one_step(model, Q, QD, A):
+    """The autodiff engine's control step of every row, vmapped."""
+    return torch.func.vmap(lambda q, qd, a: _engine(model).step(model, q, qd, a))(Q, QD, A)
+
+
+def _step_limits(env, model, Q, QD, A, q1, qd1):
+    """(q, qd) limits of the card's step (q1, qd1) from (Q, QD, A) against
+    another engine or device: 1e-4 / 1e-3, or, for a model that amplifies
+    roundoff, 4x the gap a one-ulp change of Q opens in the card's own step."""
+    if env.name not in AMPLIFIES_ROUNDOFF:
+        return 1e-4, 1e-3
+    q2, qd2 = _one_step(model, torch.nextafter(Q, torch.full_like(Q, np.inf)), QD, A)
+    return (max(1e-4, 4 * float((q1 - q2).abs().max())),
+            max(1e-3, 4 * float((qd1 - qd2).abs().max())))
+
+
+def _audit_battery(model, device):
+    """(Q, QD [40, n], A [40, 12, na]): tests/test_energy_pump.py's slams and
+    hammering patterns, draw for draw (seed 7)."""
+    rng = np.random.default_rng(7)
+    n, n_act = model.ndof, len(model.actuator_dof)
+    patterns = [np.zeros((AUDIT_HORIZON, n_act))]
+    for period in (1, 2, 4):
+        sq = np.sign(np.sin(np.arange(AUDIT_HORIZON)[:, None] * np.pi / period + 1e-6))
+        patterns.append(np.repeat(sq, n_act, axis=1))
+    patterns.append(rng.choice([-1.0, 1.0], (AUDIT_HORIZON, n_act)))
+    lo = np.asarray(model.limit_lo, np.float64)
+    hi = np.asarray(model.limit_hi, np.float64)
+    states = []
+    for _ in range(4):
+        q = 0.1 * rng.standard_normal(n)
+        q[1] = 0.3
+        qd = 2.0 * rng.standard_normal(n)
+        qd[1] = -8.0
+        states.append((q, qd))                       # ground slam
+        q2 = q.copy()
+        fin = np.isfinite(lo) & np.isfinite(hi)
+        q2[fin] = np.where(rng.random(fin.sum()) > 0.5, hi[fin], lo[fin])
+        states.append((q2, 6.0 * rng.standard_normal(n)))   # limit slam
+    rows = [(q, qd, acts) for q, qd in states for acts in patterns]
+    return tuple(torch.tensor(np.stack(x), dtype=torch.float32, device=device)
+                 for x in zip(*rows))
+
+
+def _audit(model, Q, QD, A):
+    """Per step of the battery: (excess [40], the end-of-step velocities)."""
+    from icem_torch.envs.physics import planar
+
+    audit = torch.func.vmap(lambda q, qd, a: planar.step_with_energy_audit(model, q, qd, a))
+    energy = torch.func.vmap(lambda q, qd: planar.stored_energy(model, q, qd))
+    q, qd = Q, QD
+    e = energy(q, qd)
+    for t in range(AUDIT_HORIZON):
+        q, qd, w = audit(q, qd, A[:, t])
+        e2 = energy(q, qd)
+        yield e2 - e - torch.clamp(w, min=0.0), qd
+        e = e2
+
+
+def phase_autodiff(device):
+    """[autodiff]: the autodiff engines (envs/physics/planar.py, spatial.py)
+    on the card. For each planar shape and both spatial ones: one control
+    step of AUTODIFF_P states against the same code on the CPU and against
+    kernel B1 / B2 at P = 1, h = 1 from the same states (one step from the
+    same inputs: 1e-4 on q, 1e-3 on qd, or 4x the card's own one-ulp gap for
+    a model that amplifies roundoff), and its ms per step at P = 1. Then the
+    energy-audit battery on the card for HalfCheetah and the Hopper, without
+    and with the energy valve, and 20 real steps of a valve HalfCheetah under
+    MpcICem. Returns the B1 launches of that run."""
+    import dataclasses
+
+    from icem_torch.ops import planar_rollout, spatial_rollout
+
+    for env in _autodiff_envs():
+        model, spatial = env.model, hasattr(env.model, "axis")
+        Q, QD, A = _spatial_rollout_inputs(env, AUTODIFF_P, 1, device, SEED + 30)
+        _one_step(model, Q, QD, A[:, 0])       # first call: constants, allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, qd = _one_step(model, Q, QD, A[:, 0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cq, cqd = _one_step(model, *(x.cpu() for x in (Q, QD, A[:, 0])))
+        lim_q, lim_qd = _step_limits(env, model, Q, QD, A[:, 0], q, qd)
+        cpu_err = (float((q.cpu() - cq).abs().max()), float((qd.cpu() - cqd).abs().max()))
+        rollout = spatial_rollout.rollout_spatial if spatial else planar_rollout.rollout_planar
+        kq, kqd = zip(*(rollout(model, Q[p:p + 1], QD[p:p + 1], A[p:p + 1])
+                        for p in range(AUTODIFF_P)))
+        kq, kqd = torch.cat([x[0] for x in kq]), torch.cat([x[0] for x in kqd])
+        k_err = (float((q - kq).abs().max()), float((qd - kqd).abs().max()))
+        log(f"[autodiff] {env.name} <{model.ndof} dofs>: one step of {AUTODIFF_P} states, card "
+            f"against CPU max |dq| {cpu_err[0]:.3e}, |dqd| {cpu_err[1]:.3e}; against kernel "
+            f"{'B2' if spatial else 'B1'} at P = 1, h = 1 |dq| {k_err[0]:.3e}, |dqd| "
+            f"{k_err[1]:.3e} (limits {lim_q:.1e} / {lim_qd:.1e}); {ms:.1f} ms per step "
+            f"(host clock, the second call)")
+        for what, (eq, eqd) in (("the CPU", cpu_err), ("the kernel", k_err)):
+            check(eq < lim_q and eqd < lim_qd,
+                  f"autodiff {env.name}: card against {what} |dq| {eq:.3e}, |dqd| {eqd:.3e}")
+
+    from icem_torch.envs import env_from_string
+
+    # with the valve: the JAX test's 1 J bound (the valveless integrator
+    # misses it in both packages: tests/test_torch_energy_pump.py)
+    for name in ("HalfCheetah", "Hopper"):
+        model = dataclasses.replace(env_from_string(name).model, energy_valve=True)
+        t0 = time.perf_counter()
+        worst, kinetic_left = -np.inf, 0.0
+        for excess, qd in _audit(model, *_audit_battery(model, device)):
+            check(bool(torch.isfinite(excess).all()), f"audit {name}: non-finite energy")
+            worst = max(worst, float(excess.max()))
+            over = excess > model.energy_valve_eps + 1e-2
+            if bool(over.any()):
+                kinetic_left = max(kinetic_left, float(qd[over].abs().max()))
+        log(f"[autodiff] energy audit {name} with the valve: worst excess {worst:.4f} J over "
+            f"40 trajectories x {AUDIT_HORIZON} steps ({time.perf_counter() - t0:.1f} s); the "
+            f"steps above the valve's 0.1 J margin end with |qd| max {kinetic_left:.1e}")
+        # the valve bounds what velocities carry: HalfCheetah stays at its
+        # margin; where the Hopper's limit slams gain potential energy, the
+        # valve has zeroed every velocity
+        check(kinetic_left == 0.0, f"audit {name}: the valve left velocity {kinetic_left}")
+        if name == "HalfCheetah":
+            check(worst < 1.0, f"audit {name}: the valve let {worst:.3f} J through")
+
+    env, ctrl = settings_controller("halfcheetah_running/i-cem-blitz", device, f"seed={SEED}")
+    env.model = dataclasses.replace(env.model, energy_valve=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 31)
+    state, obs = env.reset_with_mode(gen, "train")
+    ctrl.beginning_of_rollout(observation=obs, state=state)
+    ctrl.get_action(obs, state)
+    planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        a = ctrl.get_action(obs, state)
+        state, obs, _, _ = env.step(state, torch.as_tensor(a, device=device))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 20
+    launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+    check(bool(torch.isfinite(state).all()), "the valve HalfCheetah's state is not finite")
+    # the planner's 3 launches a step; the real step runs the autodiff engine
+    check(launches == {"planar": 60, "spatial": 0}, f"valve HalfCheetah launches {launches}")
+    log(f"[autodiff] valve HalfCheetah under MpcICem (i-cem-blitz), 20 control steps: "
+        f"{ms:.1f} ms per control step (host clock), finite states, root x "
+        f"{float(state[0]):.3f}; launches {launches} (the real step on the autodiff engine)")
+    return launches
+
+
+def _avi_frames(path: str) -> int:
+    """The frame count of an MJPEG AVI, parsed back: the avih header's
+    count, which must equal the movi list's JPEG chunks (each SOI..EOI) and
+    the idx1 entries."""
+    import struct
+
+    data = open(path, "rb").read()
+    check(data[:4] == b"RIFF" and data[8:12] == b"AVI "
+          and struct.unpack("<I", data[4:8])[0] == len(data) - 8, f"{path}: not a RIFF AVI")
+    avih = data.index(b"avih") + 8
+    n = struct.unpack("<I", data[avih + 16:avih + 20])[0]
+    at, chunks = data.index(b"movi") + 4, 0
+    while data[at:at + 4] == b"00dc":
+        size = struct.unpack("<I", data[at + 4:at + 8])[0]
+        jpeg = data[at + 8:at + 8 + size]
+        check(jpeg[:2] == b"\xff\xd8" and jpeg[-2:] == b"\xff\xd9", f"{path}: a bad JPEG")
+        at += 8 + size + size % 2
+        chunks += 1
+    idx = data.index(b"idx1")
+    check(n == chunks == struct.unpack("<I", data[idx + 4:idx + 8])[0] // 16,
+          f"{path}: {n} frames in the header, {chunks} chunks")
+    return n
+
+
+VIDEO_STEPS = 20
+
+
+def phase_video(device, workdir: str):
+    """[video]: ``icem_torch.main.run`` on HalfCheetah and Ant i-cem-blitz,
+    VIDEO_STEPS control steps, with rollout_params.record and without: each
+    AVI holds one frame per step and parses; ms per control step recorded
+    and unrecorded, ms per frame, seconds to write an episode's AVI and GIF,
+    host waits; then one get_action with do_visualize_plan="record".
+    Returns the kernel launches of the recorded runs."""
+    import pickle
+
+    from icem_torch import main as tmain
+    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime.config import apply_overrides, resolve_settings
+    from icem_torch.runtime.video import VideoRecorder
+
+    totals = {"planar": 0, "spatial": 0}
+    for name, kernel in (("halfcheetah_running/i-cem-blitz", "planar"),
+                         ("ant/i-cem-blitz", "spatial")):
+        tag = name.split("/")[0]
+        per_step = {}
+        for recorded in (False, True):
+            videos = os.path.join(workdir, f"videos_{tag}")
+            params = apply_overrides(resolve_settings(f"settings/{name}.json"), [
+                f"rollout_params.task_horizon={VIDEO_STEPS}", "training_iterations=1",
+                f"model_dir={os.path.join(workdir, f'video_{tag}_{int(recorded)}')}",
+                f"seed={SEED}", *([f"rollout_params.record={videos}"] if recorded else [])])
+            planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+            with host_waits() as waits:
+                info = tmain.run(params, device=device)
+            launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+            per_step[recorded] = info["train_exec_time"][0] * 1e3 / VIDEO_STEPS
+            check(launches[kernel] == 4 * VIDEO_STEPS, f"{name}: launches {launches}")
+            if not recorded:
+                continue
+            for k in totals:
+                totals[k] += launches[k]
+            with open(os.path.join(params.model_dir, "checkpoints_latest",
+                                   "rollout_buffer.pkl"), "rb") as f:
+                length = len(pickle.load(f)[0])
+            frames = _avi_frames(os.path.join(videos, "train_0001.avi"))
+            check(frames == length, f"{name}: {frames} frames for {length} steps")
+            log(f"[video] {name}: {length} steps recorded, train_0001.avi holds {frames} "
+                f"frames and parses, with train_0001.gif and live_frame.png; {waits[0]} host "
+                f"waits in the run ({waits[0] / VIDEO_STEPS:.2f} a step); launches {launches}")
+        # ms per frame (render_frame on a card state, its copy included) and
+        # the write of one episode's files, apart
+        env, _ = settings_controller(name, device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 32)
+        state = env.init_state(gen)
+        env.render_frame(state)
+        t0 = time.perf_counter()
+        frames = [env.render_frame(state) for _ in range(VIDEO_STEPS)]
+        frame_ms = (time.perf_counter() - t0) * 1e3 / VIDEO_STEPS
+        rec = VideoRecorder(os.path.join(workdir, f"rewrite_{tag}"), "ep", fps=env.get_fps())
+        for fr in frames:
+            rec.append(fr)
+        t0 = time.perf_counter()
+        rec.close()
+        write_s = time.perf_counter() - t0
+        log(f"[video] {name}: {per_step[True]:.3f} ms per control step recorded (the host "
+            f"loop, frames and files included) against {per_step[False]:.3f} unrecorded (the "
+            f"device loop); {frame_ms:.2f} ms per rendered frame ({frames[0].shape[1]}x"
+            f"{frames[0].shape[0]}); {write_s:.3f} s to write a {VIDEO_STEPS}-frame AVI and GIF "
+            f"({write_s / VIDEO_STEPS * 1e3:.1f} ms a frame)")
+
+    env, ctrl = settings_controller("halfcheetah_running/i-cem-blitz", device,
+                                    "controller_params.do_visualize_plan=record")
+    ctrl.plan_video_dir = os.path.join(workdir, "plans")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 33)
+    state, obs = env.reset_with_mode(gen, "train")
+    ctrl.beginning_of_rollout(observation=obs, state=state)
+    ctrl.get_action(obs, state)
+    frames = _avi_frames(os.path.join(ctrl.plan_video_dir, "plan_0001.avi"))
+    check(frames == ctrl.cfg.horizon, f"plan_0001.avi: {frames} frames, horizon "
+                                      f"{ctrl.cfg.horizon}")
+    log(f"[video] MpcICem.get_action with do_visualize_plan='record': plan_0001.avi holds the "
+        f"{frames} frames of the chosen plan's env replay and parses")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's main path runs on the card, not on the CPU")
@@ -1872,14 +2169,20 @@ def main() -> int:
             f"CPU max |err| {lerr:.3e})")
         driver = phase_driver(device, workdir)
         phase_driver_resume(device, workdir)
+        log(f"[wall] {time.perf_counter() - t_start:.1f} s: the driver")
+        t_new = time.perf_counter()
+        autodiff = phase_autodiff(device)
+        video = phase_video(device, workdir)
+        log(f"[wall] {time.perf_counter() - t_start:.1f} s: the autodiff engines and the video "
+            f"phases, {time.perf_counter() - t_new:.1f} s together")
     log(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s after start-up")
     # each path's launches, read just after it ran with the counts at 0
-    launches = {k: driver[k] + other[k] + learned[k] for k in driver}
+    launches = {k: driver[k] + other[k] + learned[k] + autodiff[k] + video[k] for k in driver}
     launches["planar"] += path["launches"]
     launches["spatial"] += spath["launches"]
     log(f"[launches] main paths: planar {path['launches']}, spatial {spath['launches']}; "
         f"the other controllers {other}; the learned-model runs {learned}; the driver runs "
-        f"{driver}")
+        f"{driver}; the valve HalfCheetah {autodiff}; the recorded episodes {video}")
 
     a = stimes[ant.name]
     log(json.dumps({"kernels": [{

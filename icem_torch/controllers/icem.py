@@ -38,6 +38,7 @@ from icem_torch.device import indexed, on_device, resolve_device
 from icem_torch.models.base import batch_tree, rollout_open_loop, trajectory_cost, unbatch_tree
 from icem_torch.ops.colored_noise import sample_colored_action_noise
 from icem_torch.runtime.seeding import Seeding
+from icem_torch.runtime.video import VideoRecorder
 
 
 @dataclass(frozen=True)
@@ -431,10 +432,6 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
         if sharded is True:
             raise NotImplementedError(
                 "sharded=True is not ported to icem_torch yet: it plans on one device")
-        if do_visualize_plan == "record":
-            raise NotImplementedError(
-                "do_visualize_plan='record' writes the plan replay through the video "
-                "writer (runtime/video.py), which is not ported to icem_torch yet")
         if cem_loop == "auto":
             # as in the JAX package: the spatial (3D) envs plan with the
             # scanned loop, the planar envs with the unrolled one
@@ -493,18 +490,22 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
         - "all": the plan through both the env and the forward model; prints
           the first step where they differ by more than 0.01, with both
           observations, and returns the largest per-step difference.
+        - "record": as "all", and writes the env replay's frames as the video
+          ``plan_<counter:04d>`` under ``plan_video_dir`` (default "videos").
 
-        Returns None without an env state. One host read."""
+        Returns None without an env state. One host read, and one a frame
+        when recording."""
         if env_state is None:
             return None
         mode = self.do_visualize_plan or "last"
         if mode is True:
             mode = "last"
-        env_obs = []
+        env_obs, env_states = [], []
         s = env_state
         for a in result.best_actions:
             s, o, _, _ = self.env.step(s, a)
             env_obs.append(o)
+            env_states.append(s)
         env_obs = torch.stack(env_obs)
         if mode == "last":
             div = float(torch.linalg.vector_norm(env_obs[-1] - result.best_last_obs))
@@ -527,6 +528,18 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
             print(f"simulation for visualization does not match mental model at {i}: ")
             print("orig: ", model_obs[i])
             print("simu: ", env_obs[i])
+
+        if mode == "record":
+            self._plan_video_counter = getattr(self, "_plan_video_counter", 0) + 1
+            rec = VideoRecorder(getattr(self, "plan_video_dir", "videos"),
+                                f"plan_{self._plan_video_counter:04d}", fps=self.env.get_fps())
+            for st in env_states:
+                frame = self.env.render_frame(st)
+                if frame is not None:
+                    rec.append(frame)
+            path = rec.close()
+            if path:
+                print(f"recorded plan replay: {path}")
         return float(per_step.max()) if len(per_step) else 0.0
 
     def get_action(self, obs, state=None, mode="train"):

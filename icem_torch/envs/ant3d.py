@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from icem_torch.envs.base import BoxSpace
+from icem_torch.envs.physics.render import render_spatial_xz
 from icem_torch.envs.physics.spatial import SpatialModel
 from icem_torch.envs.spatial_base import SpatialEnv
 
@@ -158,6 +159,10 @@ class Ant3D(SpatialEnv):
                 "For GT model use, set 'exclude_current_positions_from_observation': false"
             )
         return observation
+
+    def render_frame(self, state):
+        """Sagittal (x, z) wireframe projection of the 3D skeleton."""
+        return render_spatial_xz(self.model, state[..., : self.nq].cpu().numpy())
 
     def _post_step(self, state, new_state, action):
         x_velocity = (new_state[..., 0] - state[..., 0]) / self.dt

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from icem_torch.device import indexed, on_device
+from icem_torch.envs.physics.render import render_planar
 
 
 def uniform(generator: torch.Generator, shape, low: float, high: float):
@@ -218,6 +219,19 @@ class Env:
 
     def is_success(self, observation, action, next_obs):
         """Per-step success flag; None means the env has no success notion."""
+        return None
+
+    # -- rendering (host-side; never in the device hot path) ---------------
+    def render_frame(self, state):
+        """One RGB frame (uint8 [H,W,3]) of the given state, or None.
+
+        Planar-engine envs render their kinematic skeleton by default; the
+        spatial envs override this, and the envs without a model do not
+        render. The frame is drawn on the host from one copy of q.
+        """
+        model = getattr(self, "model", None)
+        if model is not None and hasattr(model, "ndof"):
+            return render_planar(model, state[..., : model.ndof].cpu().numpy())
         return None
 
     # -- misc --------------------------------------------------------------

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from icem_torch.envs.base import BoxSpace
+from icem_torch.envs.physics.render import render_spatial_xz
 from icem_torch.envs.physics.spatial import SpatialModel
 from icem_torch.envs.spatial_base import SpatialEnv
 
@@ -245,6 +246,10 @@ class _Humanoid3DBase(SpatialEnv):
                 "For GT model use, set "
                 "'exclude_current_positions_from_observation': false")
         return observation
+
+    def render_frame(self, state):
+        """Sagittal (x, z) wireframe projection of the 3D skeleton."""
+        return render_spatial_xz(self.model, state[..., : self.nq].cpu().numpy())
 
 
 class HumanoidStandup3D(_Humanoid3DBase):

@@ -1,10 +1,15 @@
 """Shared step plumbing for planar-engine environments.
 
-Counterpart of ``icem_tpu/envs/planar_base.py``. Every physics step, the real
-env step included, goes through ``ops/planar_rollout.py::rollout_planar``: the
-CUDA kernel on a CUDA tensor, the plain row engine on a CPU tensor. A real
-step is a rollout of one trajectory over one control step; a planner's
-population rollout is one launch over the whole horizon. With action repeat
+Counterpart of ``icem_tpu/envs/planar_base.py``. Every physics step of a
+valveless model, the real env step included, goes through
+``ops/planar_rollout.py::rollout_planar``: the CUDA kernel on a CUDA tensor,
+the plain row engine on a CPU tensor. A real step is a rollout of one
+trajectory over one control step; a planner's population rollout is one
+launch over the whole horizon. A model with ``energy_valve=True`` takes its
+steps (``step``, ``step_batched``) through the autodiff engine of
+``envs/physics/planar.py``, vmapped over the population, since only that
+engine carries the valve; its whole-horizon rollouts stay on the valveless
+kernel, as the JAX package's batched imagination path does. With action repeat
 the whole-horizon rollout declines (returns None), as the JAX one does, and
 the caller steps the repeated ``step_batched``: one launch with h = 1 per
 sub-step.
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from icem_torch.envs.base import Env
+from icem_torch.envs.physics import planar
 from icem_torch.ops.planar_rollout import rollout_planar
 
 
@@ -43,14 +49,15 @@ class PlanarEnv(Env):
     def step_batched(self, states, actions):
         """Population step: (states [P,S], actions [P,A]) ->
         (new_states, obs, rewards, dones)."""
-        if self.model.energy_valve:
-            raise NotImplementedError(
-                "the planar energy valve is not ported to icem_torch: the real "
-                "step of a model with energy_valve=True has no kernel yet")
         nd = self.model.ndof
         acts = torch.clamp(actions, -1.0, 1.0)
-        qs, qds = self._physics(states, acts[:, None, :])
-        new_states = torch.cat([qs[0], qds[0], states[:, 2 * nd:]], dim=1)
+        if self.model.energy_valve:
+            q, qd = torch.func.vmap(lambda q, qd, a: planar.step(self.model, q, qd, a))(
+                states[:, :nd], states[:, nd: 2 * nd], acts)
+        else:
+            qs, qds = self._physics(states, acts[:, None, :])
+            q, qd = qs[0], qds[0]
+        new_states = torch.cat([q, qd, states[:, 2 * nd:]], dim=1)
         obs, rewards, dones = self._post_step(states, new_states, acts)
         return new_states, obs, rewards, dones
 

@@ -5,7 +5,9 @@ RolloutManager, icem/misc/rollout_utils.py:38-345), with its two paths:
 
 1. ``_sample`` — the host-driven episode loop: works with any controller
    through ``get_action(obs, state, mode)``, reads every step's observation
-   back to the host and stops at ``done`` or at a non-finite observation.
+   back to the host and stops at ``done`` or at a non-finite observation. An
+   episode that renders or records a video takes this loop: a frame of the
+   state is drawn on the host before each action.
 
 2. ``sample_on_device`` — the device-resident episode, for a controller with
    ``functional_plan`` / ``init_plan_state`` (the MPC planners). Planner and
@@ -35,6 +37,7 @@ import torch
 from icem_torch.device import resolve_device
 from icem_torch.runtime.buffer import Rollout, RolloutBuffer
 from icem_torch.runtime.seeding import Seeding
+from icem_torch.runtime.video import VideoRecorder
 
 # the fields of one device transition, in buffer order
 _FIELDS = ("observations", "next_observations", "actions", "rewards", "dones", "keep",
@@ -55,10 +58,9 @@ class RolloutManager:
         self.task_horizon = int(p.get("task_horizon", 200))
         self.use_env_states = bool(p.get("use_env_states", False))
         self.only_final_reward = bool(p.get("only_final_reward", False))
-        if p.get("record", False):
-            raise NotImplementedError(
-                "rollout_params.record: episode video (runtime/video.py) is not ported "
-                "to icem_torch yet")
+        # record: falsy = off; True = "videos"; a string = the directory
+        rec = p.get("record", False)
+        self.record = rec if isinstance(rec, str) else ("videos" if rec else "")
         # fuse_on_device: true | false | "auto" (default). Auto runs episodes
         # on the device, in chunks where the env sets a step limit
         # (fused_episode_step_limit) that the call exceeds
@@ -77,10 +79,6 @@ class RolloutManager:
     def sample(self, policy, render: bool = False, mode: str = "train",
                name: str = "", no_rollouts: int = 1, desc: str = "rollout"):
         """Collect ``no_rollouts`` episodes (rollout_utils.py:89-114)."""
-        if render:
-            raise NotImplementedError(
-                "rendering (runtime/video.py, the envs' render_frame) is not ported to "
-                "icem_torch yet")
         fuse = self.fuse_on_device
         chunk = None
         if fuse == "auto":
@@ -94,20 +92,26 @@ class RolloutManager:
                     print(f"RolloutManager: fuse_on_device=auto runs the episodes in "
                           f"{n_chunks}x{chunk}-step chunks ({no_rollouts}x"
                           f"{self.task_horizon} steps exceeds the env's step limit of {limit})")
-        if fuse and hasattr(policy, "functional_plan"):
+        if fuse and not render and not self.record and hasattr(policy, "functional_plan"):
             return self.sample_on_device(policy, mode=mode, no_rollouts=no_rollouts,
                                          chunk=chunk)
-        return [self._sample(policy, mode=mode) for _ in range(no_rollouts)]
+        return [self._sample(policy, render=render, mode=mode, name=name or mode)
+                for _ in range(no_rollouts)]
 
     # ------------------------------------------------------------------ #
     def _episode_stream(self, mode: str) -> str:
         self._episode_counter += 1
         return f"rollout/{mode}/{self._epoch}/{self._episode_counter}"
 
-    def _sample(self, policy, mode: str = "train", start_state=None) -> Rollout:
+    def _sample(self, policy, render: bool = False, mode: str = "train", start_state=None,
+                name: str = "") -> Rollout:
         """Host-driven canonical env loop (rollout_utils.py:154-227)."""
         env = self.env
         gen = Seeding.generator_for(self._episode_stream(mode), self.device)
+        recorder = None
+        if self.record:
+            recorder = VideoRecorder(self.record, f"{name or mode}_{self._episode_counter:04d}",
+                                     fps=env.get_fps())
         if start_state is not None:
             state = start_state
             obs = env.observation(state)
@@ -122,6 +126,10 @@ class RolloutManager:
         successes = []
         start_time = time.time()
         for t in range(self.task_horizon):
+            if render or recorder is not None:
+                frame = env.render_frame(state)
+                if recorder is not None and frame is not None:
+                    recorder.append(frame)
             env_state = state if self.use_env_states else None
             action = policy.get_action(obs, env_state, mode=mode)
             action_t = torch.as_tensor(action, dtype=torch.float32, device=self.device)
@@ -141,6 +149,10 @@ class RolloutManager:
             if float(done):
                 break
 
+        if recorder is not None:
+            path = recorder.close()
+            if path:
+                print(f"recorded episode video: {path}")
         if not transitions:  # first-step blow-up: empty rollout, not a crash
             z = np.zeros((0, env.obs_dim), np.float32)
             za = np.zeros((0, env.action_dim), np.float32)

@@ -11,6 +11,7 @@ import torch
 
 from icem_tpu.envs.cheetah import HalfCheetah as JaxCheetah
 from icem_torch.envs.cheetah import HalfCheetah
+from icem_torch.envs.physics import planar
 
 KW = dict(exclude_current_positions_from_observation=True, penalise_flipping=True)
 
@@ -108,10 +109,17 @@ def test_state_and_observation_contract():
 
 
 def test_unported_options_raise():
+    # the planar energy valve is ported: a valve model's real step runs the
+    # autodiff engine (tests/test_torch_autodiff_physics.py holds it against
+    # the JAX package), a valveless model's the row engine
     env = HalfCheetah(**KW)
     env.model = dataclasses.replace(env.model, energy_valve=True)
-    with pytest.raises(NotImplementedError, match="energy valve"):
-        env.step(torch.zeros(18), torch.zeros(6))
+    S = torch.from_numpy(_states(1, 6)[0])
+    A = torch.full((6,), 0.5)
+    s, obs, rew, done = env.step(S, A)
+    q, qd = planar.step(env.model, S[:9], S[9:], A)
+    np.testing.assert_allclose(s.numpy(), torch.cat([q, qd]).numpy(), rtol=0, atol=1e-5)
+    assert bool(torch.isfinite(obs).all()) and float(done) == 0.0
     # action repeat is ported: the whole-horizon path declines it, as the
     # JAX one does, and the caller steps the repeated step
     repeated = HalfCheetah(action_repeat=2, **KW)

@@ -124,12 +124,17 @@ def test_unported_names_and_options_raise(tmp_path):
         assert forward_model_from_string(name).__name__ == cls
     with pytest.raises(ImportError, match="GroundTruthModel"):
         forward_model_from_string("NoSuchModel")
-    with pytest.raises(NotImplementedError, match="video"):
-        tmain.run(_params("halfcheetah", tmp_path / "rec", "rollout_params.record=true"),
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="render"):
-        tmain.run(_params("halfcheetah", tmp_path / "ren", "rollout_params.render=true"),
-                  device="cpu")
+    # recording and rendering are ported: one video per episode, one frame a
+    # step, named <name>_<episode counter> (tests/test_torch_video.py)
+    videos = tmp_path / "videos"
+    info = tmain.run(_params("halfcheetah", tmp_path / "rec",
+                             f"rollout_params.record={videos}"), device="cpu")
+    assert info["step"] == [0, 1]
+    assert sorted(os.listdir(videos)) == ["live_frame.png", "train_0001.avi", "train_0001.gif",
+                                          "train_0002.avi", "train_0002.gif"]
+    info = tmain.run(_params("halfcheetah", tmp_path / "ren", "rollout_params.render=true"),
+                     device="cpu")
+    assert info["step"] == [0, 1] and all(np.isfinite(info["train_mean_return"]))
 
 
 def test_run_without_a_device_raises_where_there_is_no_card(monkeypatch, tmp_path):

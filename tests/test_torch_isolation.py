@@ -57,6 +57,32 @@ def test_no_jax_import_in_source(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
 
 
+# libraries the card's machine lacks: the port writes its own image files
+# and imports the MuJoCo oracle only inside the harness's main()
+HOST_ONLY = ("PIL", "imageio", "matplotlib", "mujoco")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_image_or_simulator_library_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    inside_main = {id(n) for node in ast.walk(tree)
+                   if isinstance(node, ast.FunctionDef) and node.name == "main"
+                   for n in ast.walk(node)}
+    oracle = path.relative_to(ROOT).as_posix() == "icem_torch/tools/fidelity_oracle.py"
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top == "mujoco" and oracle and id(node) in inside_main:
+                continue
+            assert top not in HOST_ONLY, f"{path.name}:{node.lineno} imports {name}"
+
+
 def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

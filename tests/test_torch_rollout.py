@@ -9,6 +9,8 @@ breaks before appending it), its NaN reward is zeroed, and every later step
 of the device path is frozen at the last finite state.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -260,10 +262,19 @@ def test_host_path_serves_a_policy_without_functional_plan():
     assert len(r) == 3 and r["rewards"].dtype == np.float64
 
 
-def test_render_and_record_are_not_ported():
-    with pytest.raises(NotImplementedError, match="video"):
-        _manager(ExplodingEnv(), record=True)
-    with pytest.raises(NotImplementedError, match="video"):
-        _manager(ExplodingEnv(), record="videos")
-    with pytest.raises(NotImplementedError, match="render"):
-        _manager(ExplodingEnv()).sample(ZeroPolicy(), render=True)
+def test_render_and_record_are_not_ported(tmp_path):
+    # both are ported (tests/test_torch_video.py writes the videos): record
+    # is off when falsy, "videos" when True, a directory when a string, and
+    # an episode that records or renders takes the host loop, even for a
+    # policy with the functional interface (the host loop's rewards are
+    # float64). An env without a model draws no frame and writes no file.
+    assert _manager(ExplodingEnv(), record=True).record == "videos"
+    assert _manager(ExplodingEnv(), record=False).record == ""
+    out = tmp_path / "videos"
+    rm = _manager(ExplodingEnv(blow_at=99), task_horizon=3, record=str(out))
+    assert rm.record == str(out)
+    r = rm.sample(ZeroPolicy())[0]
+    assert len(r) == 3 and r["rewards"].dtype == np.float64
+    assert os.listdir(out) == []
+    r = _manager(ExplodingEnv(blow_at=99), task_horizon=3).sample(ZeroPolicy(), render=True)[0]
+    assert len(r) == 3 and r["rewards"].dtype == np.float64

@@ -114,6 +114,19 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     recorded and unrecorded, ms per rendered frame, seconds to write an
     episode's AVI and GIF; then one ``get_action`` with
     do_visualize_plan="record".
+22. [sharded]: the sharded planner (``icem_torch/parallel``), last. One
+    rank under NCCL in this process: the driver on
+    settings/halfcheetah_running/i-cem-blitz.json and cem-std.json with
+    controller_params.sharded=true (1,000 steps each, held as in step 11 and
+    19), beside the unsharded runs' ms per control step. Then both kernels
+    against their plain versions at the rows one rank of two launches
+    (HalfCheetah P = 22 / 16 / 13, h = 30; Ant P = 66 / 51 / 41, h = 12),
+    timed there, and two rank processes of this script
+    (``--sharded-rank``) in a gloo group over a FileStore on the one card,
+    each running ``MpcICem`` from the HalfCheetah and Ant i-cem-blitz
+    settings with sharded=True for 2 plan steps: both ranks' actions,
+    means, stds and elites must be the same bits, and the same bits as a
+    one-process emulation of the sharded plan on the card.
 
 The MpcICem phases build their controllers from the settings files as the
 driver does (``icem_torch.main.get_controllers``).
@@ -1598,28 +1611,31 @@ DRIVER_RUNS = (
     ("hopper/i-cem-blitz", ("rollout_params.task_horizon=500",), "planar", 500, 5 * 500, None,
      None, 20),
     # analytic envs, no kernel: the pendulum's 3 iterations of 120 steps,
-    # held to its own solve threshold (avg_return_required_to_solve)
-    ("pendulum/i-cem-blitz", (), None, 3 * 120, 0, -300.0, None, 10),
+    # held to its own solve threshold (avg_return_required_to_solve); the
+    # idle windows of the pendulum and FetchReach over 3 steps (were 10),
+    # of the mountain car and the GT cart-pole over 1 (were 2: 12 and 37 s
+    # of profiler work): the sharded phase's share of the script's time
+    ("pendulum/i-cem-blitz", (), None, 3 * 120, 0, -300.0, None, 3),
     # 180-240 ms a control step (600 small steps of the env a plan step):
     # 1 of the 3 iterations, its episode cut from 200 to 110 steps (the car
     # reaches the goal at step 106 with seed 0; a device episode plans on
     # after the end, frozen)
     ("mountain_car/i-cem-best", ("training_iterations=1", "rollout_params.task_horizon=110"),
-     None, 110, 0, 90.0, None, 2),
+     None, 110, 0, 90.0, None, 1),
     # action repeat 8 and the scanned loop, 590-820 ms a control step (960
     # raw steps a plan step): 1 of the 2 iterations, its episode cut from
     # 125 to 5 steps, to keep the script near 600 s
     ("planet/cartpole_swingup_gt", ("rollout_params.task_horizon=5", "training_iterations=1"),
-     None, 5, 0, None, None, 2),
+     None, 5, 0, None, None, 1),
     # vanilla CEM, the paper's baseline, as shipped: pop 97, h 30, 3
     # iterations at P = 97 and the real step (the JAX package's v5e runs
     # return 4,940-4,989: results/QUALITY_r05.json)
     ("halfcheetah_running/cem-std", (), "planar", 1000, 4 * 1000, 2000.0, 1, 20),
     # the goal-conditioned analytic envs as shipped, no kernel; their
     # success rates are printed beside the returns
-    ("fetch_reach/i-cem-blitz", (), None, 50, 0, None, None, 10),
-    # FPP, Door and Relocate over 3 steps of idle window, the mountain car
-    # over 2, FPP 25 of its 50 steps and Door and Relocate 50 of their 200:
+    ("fetch_reach/i-cem-blitz", (), None, 50, 0, None, None, 3),
+    # FPP, Door and Relocate over 3 steps of idle window, FPP 25 of its 50
+    # steps and Door and Relocate 50 of their 200:
     # the learned-model, autodiff and video phases' share of the script's time
     ("fpp/i-cem-blitz", ("rollout_params.task_horizon=25",), None, 25, 0, None, None, 3),
     ("door/i-cem-blitz", ("rollout_params.task_horizon=50",), None, 50, 0, None, None, 3),
@@ -1683,13 +1699,14 @@ def phase_driver_times(device, planar_shapes, spatial_cases):
             f"launch; {bound(env.model, P, h, spatial_ops[env.name])}")
 
 
-def phase_driver(device, workdir: str):
-    """``icem_torch.main.run`` on the shipped i-cem-blitz settings, under a
-    temporary model_dir: the kernel launches of each run (counts set to 0
-    just before it, read just after), its return, ms per control step and
-    env steps/s (from the run's own train_exec_time, which times the
-    episodes), the host waits for the card it made, and the device idle
-    share over a short episode of the same settings."""
+def drive_settings(device, workdir: str, tag: str, run) -> tuple:
+    """``icem_torch.main.run`` on one entry of DRIVER_RUNS under a temporary
+    model_dir: the kernel launches of the run (counts set to 0 just before
+    it, read just after), its return, ms per control step and env steps/s
+    (from the run's own train_exec_time, which times the episodes), the host
+    waits for the card it made, and the device idle share over a short
+    episode of the same settings. Returns (launches per kernel, ms per
+    control step)."""
     import pickle
 
     from icem_torch import main as tmain
@@ -1697,74 +1714,83 @@ def phase_driver(device, workdir: str):
     from icem_torch.runtime.config import apply_overrides, resolve_settings
     from icem_torch.runtime.rollout import RolloutManager
 
+    name, overrides, kernel, steps, expected, least, pitch, idle_steps = run
+    counters = {"planar": planar_rollout, "spatial": spatial_rollout}
+    params = apply_overrides(resolve_settings(f"settings/{name}.json"), [
+        *overrides, f"model_dir={os.path.join(workdir, tag)}", f"seed={SEED}"])
+    planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+    with host_waits() as waits:
+        t0 = time.perf_counter()
+        info = tmain.run(params, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: m.LAUNCHES for k, m in counters.items()}
+    syncs = waits[0]
+    ret = info["train_mean_return"][-1]
+    initial = params.initial_number_of_rollouts if params.initial_controller != "none" else 0
+    check(steps == (params.training_iterations * params.number_of_rollouts + initial)
+          * params.rollout_params.task_horizon, f"{name}: the run is not {steps} steps")
+    exec_s = float(np.sum(info["train_exec_time"]))
+    ms_step = exec_s * 1e3 / steps
+    success = ""
+    if "train_mean_success" in info:
+        success = (f"; success rate of the last step, per iteration "
+                   f"{', '.join(f'{x:.2f}' for x in info['train_mean_success'])}")
+    log(f"[driver] settings/{name}.json{' ' + ' '.join(overrides) if overrides else ''}: "
+        f"{initial} + {params.training_iterations} x {params.number_of_rollouts} x "
+        f"{params.rollout_params.task_horizon} steps; last iteration's return "
+        f"{ret:.2f} (std {info['train_std_return'][-1]:.2f}; per iteration "
+        f"{', '.join(f'{r:.2f}' for r in info['train_mean_return'])}); episodes {exec_s:.3f} s, "
+        f"{ms_step:.3f} ms per control step, {steps / exec_s:.1f} env steps/s; run() "
+        f"{wall:.3f} s in all; launches {launches}; {syncs} host waits for the card "
+        f"in the whole run{success}")
+    log(f"[driver]   host waits by source line: {dict(waits[1].most_common(8))}")
+    with open(os.path.join(params.model_dir, "checkpoints_latest", "rollout_buffer.pkl"),
+              "rb") as f:
+        episodes = pickle.load(f)
+    note = ""
+    if pitch is not None:
+        angle = np.concatenate([r["observations"][:, pitch] for r in episodes])
+        past = np.flatnonzero(np.abs(angle) > np.pi / 2)
+        note = (f"; root pitch in [{angle.min():.3f}, {angle.max():.3f}] rad, first past "
+                f"+-pi/2 at step {past[0] if len(past) else 'none'}")
+    log(f"[driver]   episode lengths {[len(r) for r in episodes]}{note}")
+    got = 0 if kernel is None else launches[kernel]
+    check(got == expected and sum(launches.values()) == expected,
+          f"{name}: launches {launches}, expected {expected} of {kernel}")
+    check(np.isfinite(ret), f"{name}: non-finite return {ret}")
+    if least is not None:
+        check(ret > least, f"{name}: return {ret:.2f} not above {least}")
+    # the episode loop itself makes none: what remains is set-up,
+    # checkpoints and one copy per chunk, at most 10 an iteration
+    check(syncs < max(steps // 10, 10 * params.training_iterations),
+          f"{name}: {syncs} host waits in {steps} steps")
+
+    # the device idle share over a short episode of the same settings
+    env, ctrl = settings_controller(name, device, *overrides, f"seed={SEED}")
+    rm = RolloutManager(env, {**params.rollout_params, "task_horizon": idle_steps},
+                        device=device)
+    rm.sample(ctrl)  # first launches of this env's model: binding, caches
+    profile_window(lambda: rm.sample(ctrl), idle_steps, f"driver {tag}")
+    return launches, ms_step
+
+
+def phase_driver(device, workdir: str):
+    """``drive_settings`` on every entry of DRIVER_RUNS, the shipped
+    i-cem-blitz settings and the others. Returns (the launches of each
+    kernel, ms per control step by settings name and overrides)."""
     with host_waits() as probe:  # the counter sees a read-back
         float(torch.ones((), device=device))
     check(probe[0] >= 1, "set_sync_debug_mode('warn') counted no host wait for .item()")
 
-    counters = {"planar": planar_rollout, "spatial": spatial_rollout}
-    totals = {k: 0 for k in counters}
-    for i, (name, overrides, kernel, steps, expected, least, pitch,
-            idle_steps) in enumerate(DRIVER_RUNS):
-        tag = name.split("/")[0]
-        params = apply_overrides(resolve_settings(f"settings/{name}.json"), [
-            *overrides, f"model_dir={os.path.join(workdir, f'{i}_{tag}')}", f"seed={SEED}"])
-        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
-        with host_waits() as waits:
-            t0 = time.perf_counter()
-            info = tmain.run(params, device=device)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        launches = {k: m.LAUNCHES for k, m in counters.items()}
+    totals = {"planar": 0, "spatial": 0}
+    ms = {}
+    for i, run in enumerate(DRIVER_RUNS):
+        launches, ms[run[:2]] = drive_settings(device, workdir, f"{i}_{run[0].split('/')[0]}",
+                                               run)
         for k in totals:
             totals[k] += launches[k]
-        syncs = waits[0]
-        ret = info["train_mean_return"][-1]
-        initial = params.initial_number_of_rollouts if params.initial_controller != "none" else 0
-        check(steps == (params.training_iterations * params.number_of_rollouts + initial)
-              * params.rollout_params.task_horizon, f"{name}: the run is not {steps} steps")
-        exec_s = float(np.sum(info["train_exec_time"]))
-        ms_step = exec_s * 1e3 / steps
-        success = ""
-        if "train_mean_success" in info:
-            success = (f"; success rate of the last step, per iteration "
-                       f"{', '.join(f'{x:.2f}' for x in info['train_mean_success'])}")
-        log(f"[driver] settings/{name}.json{' ' + ' '.join(overrides) if overrides else ''}: "
-            f"{initial} + {params.training_iterations} x {params.number_of_rollouts} x "
-            f"{params.rollout_params.task_horizon} steps; last iteration's return "
-            f"{ret:.2f} (std {info['train_std_return'][-1]:.2f}; per iteration "
-            f"{', '.join(f'{r:.2f}' for r in info['train_mean_return'])}); episodes {exec_s:.3f} s, "
-            f"{ms_step:.3f} ms per control step, {steps / exec_s:.1f} env steps/s; run() "
-            f"{wall:.3f} s in all; launches {launches}; {syncs} host waits for the card "
-            f"in the whole run{success}")
-        log(f"[driver]   host waits by source line: {dict(waits[1].most_common(8))}")
-        with open(os.path.join(params.model_dir, "checkpoints_latest", "rollout_buffer.pkl"),
-                  "rb") as f:
-            episodes = pickle.load(f)
-        note = ""
-        if pitch is not None:
-            angle = np.concatenate([r["observations"][:, pitch] for r in episodes])
-            past = np.flatnonzero(np.abs(angle) > np.pi / 2)
-            note = (f"; root pitch in [{angle.min():.3f}, {angle.max():.3f}] rad, first past "
-                    f"+-pi/2 at step {past[0] if len(past) else 'none'}")
-        log(f"[driver]   episode lengths {[len(r) for r in episodes]}{note}")
-        got = 0 if kernel is None else launches[kernel]
-        check(got == expected and sum(launches.values()) == expected,
-              f"{name}: launches {launches}, expected {expected} of {kernel}")
-        check(np.isfinite(ret), f"{name}: non-finite return {ret}")
-        if least is not None:
-            check(ret > least, f"{name}: return {ret:.2f} not above {least}")
-        # the episode loop itself makes none: what remains is set-up,
-        # checkpoints and one copy per chunk, at most 10 an iteration
-        check(syncs < max(steps // 10, 10 * params.training_iterations),
-              f"{name}: {syncs} host waits in {steps} steps")
-
-        # the device idle share over a short episode of the same settings
-        env, ctrl = settings_controller(name, device, *overrides, f"seed={SEED}")
-        rm = RolloutManager(env, {**params.rollout_params, "task_horizon": idle_steps},
-                            device=device)
-        rm.sample(ctrl)  # first launches of this env's model: binding, caches
-        profile_window(lambda: rm.sample(ctrl), idle_steps, f"driver {i}_{tag}")
-    return totals
+    return totals, ms
 
 
 def phase_driver_resume(device, workdir: str):
@@ -2091,6 +2117,280 @@ def phase_video(device, workdir: str):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# [sharded]: the sharded planner (icem_torch/parallel) on the card
+
+SHARDED_RANKS = 2
+# each rank plans from these settings with sharded=True, 2 plan steps
+SHARDED_SETTINGS = ("halfcheetah_running/i-cem-blitz", "ant/i-cem-blitz")
+SHARDED_STEPS = 2
+SHARDED_TIMEOUT = 240  # seconds the two rank processes may take, start-up included
+# one rank under NCCL in this process, through the driver: DRIVER_RUNS'
+# entries of the two HalfCheetah planners as shipped, with sharded=true
+SHARDED_DRIVER_RUNS = tuple(
+    (name, ("controller_params.sharded=true",), *rest) for name, overrides, *rest in DRIVER_RUNS
+    if name in ("halfcheetah_running/i-cem-blitz", "halfcheetah_running/cem-std")
+    and not overrides)
+
+
+def sharded_launch_rows(cfg, W: int) -> list:
+    """The rows of each CEM iteration's launch on one rank of W: its shard
+    of the fresh samples, plus at iteration 0 its slice of the shifted
+    elites (parallel/plan.py::plan_step_sharded)."""
+    E = cfg.elites_kept
+    e_local = -(-E // W) if cfg.shift_elites_over_time and E > 0 else 0
+    return [-(-n // W) + (e_local if i == 0 else 0)
+            for i, n in enumerate(cfg.population_schedule)]
+
+
+def emulate_plan_step_sharded(cfg, predict_fn, cost_fn, W, pstate, obs, model_state):
+    """plan_step_sharded's spec in one process, on the card: each rank's
+    shard regenerated from its rank stream, each rank's batch rolled out
+    alone as that rank rolled it out (B1 / B2), then a direct global
+    selection over the union of the candidates: no local top-k, no gather.
+    (A copy of tests/test_torch_parallel.py's, which imports JAX.)"""
+    from icem_torch.controllers import icem as ic
+    from icem_torch.models.base import rollout_open_loop, trajectory_cost
+    from icem_torch.parallel.plan import rank_generator
+
+    E = cfg.elites_kept
+    last_iter = cfg.opt_iterations - 1
+    h, d = cfg.horizon, cfg.action_dim
+    mean, std, gen = pstate.mean, pstate.std, pstate.generator
+    device = mean.device
+    have = pstate.have_elites
+    e_a, e_c, e_o = pstate.elite_actions, pstate.elite_costs, pstate.elite_last_obs
+    stream = pstate.rank_stream
+    e_local = -(-E // W) if (cfg.shift_elites_over_time and E > 0) else 0
+    for i, n_i in enumerate(cfg.population_schedule):
+        n_local = -(-n_i // W)
+        if e_local and i == 0:
+            last_step = ic.sample_action_sequences(cfg, gen, mean, std, E)[:, -1:, :]
+            shifted = torch.cat([e_a[:E, 1:, :], last_step], dim=1)
+        cand_a, cand_c, cand_o = [], [], []
+        for r in range(W):
+            sim = ic.sample_action_sequences(cfg, rank_generator(stream, r, i, device), mean,
+                                             std, n_local)
+            if cfg.use_mean_actions and i == last_iter and r == 0:
+                sim[0] = mean
+            valid = torch.ones(n_local, dtype=torch.bool, device=device)
+            if e_local and i == 0:
+                mine = torch.zeros((e_local, h, d), device=device)
+                mine_valid = torch.zeros(e_local, dtype=torch.bool, device=device)
+                for j in range(e_local):
+                    if r * e_local + j < E:  # else a padding row, invalid
+                        mine[j] = shifted[r * e_local + j]
+                        mine_valid[j] = have
+                sim = torch.cat([sim, mine])
+                valid = torch.cat([valid, mine_valid])
+            traj = rollout_open_loop(predict_fn, model_state, obs, sim)
+            c = trajectory_cost(cost_fn, traj, cfg.cost_along_trajectory,
+                                cfg.use_env_reward_as_cost)
+            cand_a.append(sim)
+            cand_c.append(torch.where(valid & torch.isfinite(c), c, float("inf")))
+            cand_o.append(traj.next_observations[-1])
+        if i > 0 and cfg.keep_previous_elites and E > 0:
+            cand_a.append(e_a[:E])
+            cand_c.append(e_c[:E])
+            cand_o.append(e_o[:E])
+        cand_a, cand_c, cand_o = torch.cat(cand_a), torch.cat(cand_c), torch.cat(cand_o)
+        cand_c = torch.where(torch.isfinite(cand_c), cand_c, float("inf"))
+        best_a, best_c, best_o = ic.best_candidate(cand_a, cand_c, cand_o)
+        mean, std, e_a, e_c, e_o = ic._refit(cfg, mean, std, cand_a, cand_c, cand_o)
+        have = True
+    mean = torch.cat([mean[1:], mean[-1:]])
+    state = ic.ICemState(mean=mean, std=ic.init_std(cfg, device), elite_actions=e_a,
+                         elite_costs=e_c, elite_last_obs=e_o, have_elites=have, generator=gen,
+                         rank_stream=stream._replace(step=stream.step + 1))
+    return ic.PlanResult(action=best_a[0], state=state, expected_cost=best_c,
+                         best_actions=best_a, best_last_obs=best_o)
+
+
+_SHARDED_FIELDS = ("mean", "std", "elite_actions", "elite_costs", "elite_last_obs")
+
+
+def sharded_rank(rank: int, world: int, store: str, out: str):
+    """One rank of the two-rank phase (``chip_smoke.py --sharded-rank``): a
+    gloo group over the FileStore ``store``, then ``MpcICem`` from each of
+    SHARDED_SETTINGS with sharded=True, SHARDED_STEPS plan steps from the
+    script's seeds, each followed by the real env step. Writes each step's
+    action and planner state, the launches and the host waits to ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from icem_torch.ops import planar_rollout, spatial_rollout
+
+    device = torch.device("cuda")
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    result = {}
+    for name in SHARDED_SETTINGS:
+        env, ctrl = settings_controller(name, device, "controller_params.sharded=true",
+                                        f"controller_params.seed={SEED + 30}")
+        check((ctrl._group.rank, ctrl._group.size, ctrl._group.backend) == (rank, world, "gloo"),
+              f"rank {rank}: the controller's group is {ctrl._group}")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 31)
+        s = env.init_state(gen)
+        o = env.observation(s)
+        ctrl.beginning_of_rollout(observation=o, state=s)
+        steps, step_ms = [], []
+        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+        with host_waits() as waits:
+            for _ in range(SHARDED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a = ctrl.get_action(o, s)
+                s, o, _, _ = env.step(s, torch.as_tensor(a, device=device))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                st = ctrl._pstate
+                steps.append(dict(action=a, **{k: getattr(st, k).cpu() for k in _SHARDED_FIELDS}))
+        result[name] = dict(steps=steps, step_ms=step_ms, host_waits=waits[0],
+                            launches={"planar": planar_rollout.LAUNCHES,
+                                      "spatial": spatial_rollout.LAUNCHES})
+    torch.save(result, out)
+    dist.destroy_process_group()
+
+
+def phase_sharded(device, workdir: str, driver_ms: dict):
+    """[sharded]: the sharded planner on the card.
+
+    1. One rank under NCCL, in this process: ``icem_torch.main.run`` on the
+       HalfCheetah i-cem-blitz and cem-std settings with sharded=true (a
+       one-rank group rendezvoused in memory), each as its DRIVER_RUNS entry
+       is run and held, beside the unsharded run's ms per control step.
+    2. Two ranks on the card, two processes in a gloo group over a FileStore
+       (NCCL refuses two ranks on one card): ``MpcICem`` from
+       SHARDED_SETTINGS, HalfCheetah (B1) and Ant (B2, the unrolled loop),
+       from one state and seed. Both kernels are first held against their
+       plain versions at the rows a rank launches. The ranks' actions,
+       means, stds and elites must be the same bits, and the same bits as
+       ``emulate_plan_step_sharded`` here on the card.
+
+    Returns the launches of each kernel in both parts' driven runs (the
+    ranks count their own)."""
+    import shutil
+    import subprocess
+
+    from icem_torch.controllers import icem as ic
+    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.parallel.plan import close_local_groups, init_rank_stream
+
+    t_phase = time.perf_counter()
+    totals = {"planar": 0, "spatial": 0}
+    for i, run in enumerate(SHARDED_DRIVER_RUNS):
+        launches, ms = drive_settings(device, workdir, f"sharded_{i}", run)
+        for k in totals:
+            totals[k] += launches[k]
+        plain = driver_ms[(run[0], ())]
+        log(f"[sharded] one rank, NCCL: settings/{run[0]}.json sharded=true {ms:.3f} ms per "
+            f"control step against {plain:.3f} unsharded ({ms / plain:.3f}x); launches "
+            f"{launches}")
+    close_local_groups()
+
+    # the rows each rank launches, and both kernels at them
+    W = SHARDED_RANKS
+    ctrls = {name: settings_controller(name, device, f"controller_params.seed={SEED + 30}")
+             for name in SHARDED_SETTINGS}
+    rows = {name: sharded_launch_rows(ctrl.cfg, W) for name, (_, ctrl) in ctrls.items()}
+    cheetah_env, cheetah = ctrls[SHARDED_SETTINGS[0]]
+    ant_env, ant = ctrls[SHARDED_SETTINGS[1]]
+    log(f"[sharded] rows of a rank's launches at {W} ranks: {rows}")
+    log(f"[wall] {time.perf_counter() - t_phase:.1f} s: the one-rank driver runs")
+    planar_shapes = [(P, cheetah.cfg.horizon) for P in rows[SHARDED_SETTINGS[0]]]
+    spatial_shapes = [(ant_env, P, ant.cfg.horizon) for P in rows[SHARDED_SETTINGS[1]]]
+    err, _ = phase_kernel_vs_plain(device, planar_shapes)
+    serr, _ = phase_spatial_kernel_vs_plain(device, [(env, P, h, min(h, 10))
+                                                     for env, P, h in spatial_shapes])
+    phase_driver_times(device, planar_shapes, spatial_shapes)
+    log(f"[wall] {time.perf_counter() - t_phase:.1f} s: and both kernels at a rank's rows")
+
+    # two rank processes of this script
+    store_dir = tempfile.mkdtemp(dir=workdir)
+    outs = [os.path.join(store_dir, f"rank{r}.pt") for r in range(W)]
+    logs = [open(os.path.join(store_dir, f"rank{r}.log"), "w") for r in range(W)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                               str(r), str(W), os.path.join(store_dir, "store"), outs[r]],
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(W)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, SHARDED_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * W:
+        for r in range(W):
+            with open(os.path.join(store_dir, f"rank{r}.log")) as f:
+                log(f"[sharded] rank {r} log:\n{f.read()[-4000:]}")
+        fail(f"[sharded] the rank processes exited with {rcs} (limit {SHARDED_TIMEOUT} s)")
+    results = [torch.load(o, weights_only=False) for o in outs]
+    shutil.rmtree(store_dir)
+
+    for name, (env, ctrl) in ctrls.items():
+        kernel = "planar" if name.startswith("halfcheetah") else "spatial"
+        got = [res[name] for res in results]
+        for k in totals:
+            totals[k] += sum(g["launches"][k] for g in got)
+        per_step = ctrl.cfg.opt_iterations + 1
+        check(all(g["launches"] == {"planar": 0, "spatial": 0, kernel: per_step * SHARDED_STEPS}
+                  for g in got), f"[sharded] {name}: launches {[g['launches'] for g in got]}")
+        # check 1: the ranks agree to the bit
+        for step in range(SHARDED_STEPS):
+            a, b = got[0]["steps"][step], got[1]["steps"][step]
+            check(np.array_equal(a["action"], b["action"])
+                  and all(torch.equal(a[k], b[k]) for k in _SHARDED_FIELDS),
+                  f"[sharded] {name}, step {step + 1}: the two ranks differ")
+        # check 2: so does the one-process emulation on the card
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 31)
+        s = env.init_state(gen)
+        o = env.observation(s)
+        plan_gen = torch.Generator(device=device)
+        plan_gen.manual_seed(SEED + 30)
+        pstate = ic.init_state(ctrl.cfg, env.obs_dim, plan_gen)._replace(
+            rank_stream=init_rank_stream(plan_gen))
+        fm = ctrl.forward_model
+        model_state = None
+        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+        for step in range(SHARDED_STEPS):
+            model_state = fm.got_actual_observation_and_env_state(
+                observation=o, env_state=s, model_state=model_state)
+            res = emulate_plan_step_sharded(ctrl.cfg, fm.predict_fn, env.cost_fn, W, pstate, o,
+                                            model_state)
+            pstate = res.state
+            want = got[0]["steps"][step]
+            same = np.array_equal(res.action.cpu().numpy(), want["action"]) and all(
+                torch.equal(getattr(pstate, k).cpu(), want[k]) for k in _SHARDED_FIELDS)
+            gap = np.abs(res.action.cpu().numpy() - want["action"]).max()
+            check(same, f"[sharded] {name}, step {step + 1}: the ranks differ from the "
+                        f"emulation: |da| = {gap}")
+            s, o, _, _ = env.step(s, res.action)
+        emulated = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+        log(f"[sharded] two ranks (gloo over a FileStore, one card): {name} sharded=true, "
+            f"{SHARDED_STEPS} plan steps; actions, means, stds and elites of both ranks the "
+            f"same bits, and the same bits as the one-process emulation on the card "
+            f"({emulated[kernel]} {kernel} launches of each rank's rows); launches per rank "
+            f"{got[0]['launches']}; ms per control step (plan + real step) "
+            f"{[[round(t, 3) for t in g['step_ms']] for g in got]}; host waits per step "
+            f"{[g['host_waits'] / SHARDED_STEPS for g in got]} (the gather's copy to the host "
+            f"and back: gloo gathers host tensors); last action "
+            f"{np.array2string(got[0]['steps'][-1]['action'], precision=4)}")
+    log(f"[sharded] {W} rank processes took {ranks_s:.1f} s with start-up; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {card_name_and_power_limit()}")
+    return totals, err, serr
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's main path runs on the card, not on the CPU")
@@ -2098,6 +2398,9 @@ def main() -> int:
         import icem_torch  # noqa: F401
     except ImportError as e:
         fail(f"icem_torch is not importable next to this script: {e}")
+    if sys.argv[1:2] == ["--sharded-rank"]:  # one rank of phase_sharded's two
+        sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        return 0
     device = torch.device("cuda")
     card = card_name_and_power_limit()
     log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -2167,7 +2470,7 @@ def main() -> int:
         learned = phase_learned_driver(device, workdir)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the learned models (card against "
             f"CPU max |err| {lerr:.3e})")
-        driver = phase_driver(device, workdir)
+        driver, driver_ms = phase_driver(device, workdir)
         phase_driver_resume(device, workdir)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the driver")
         t_new = time.perf_counter()
@@ -2175,14 +2478,19 @@ def main() -> int:
         video = phase_video(device, workdir)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the autodiff engines and the video "
             f"phases, {time.perf_counter() - t_new:.1f} s together")
+        # last: the sharded planner; it destroys the groups it made
+        sharded, sherr, shserr = phase_sharded(device, workdir, driver_ms)
+        log(f"[wall] {time.perf_counter() - t_start:.1f} s: the sharded planner")
     log(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s after start-up")
     # each path's launches, read just after it ran with the counts at 0
-    launches = {k: driver[k] + other[k] + learned[k] + autodiff[k] + video[k] for k in driver}
+    launches = {k: driver[k] + other[k] + learned[k] + autodiff[k] + video[k] + sharded[k]
+                for k in driver}
     launches["planar"] += path["launches"]
     launches["spatial"] += spath["launches"]
     log(f"[launches] main paths: planar {path['launches']}, spatial {spath['launches']}; "
         f"the other controllers {other}; the learned-model runs {learned}; the driver runs "
-        f"{driver}; the valve HalfCheetah {autodiff}; the recorded episodes {video}")
+        f"{driver}; the valve HalfCheetah {autodiff}; the recorded episodes {video}; the "
+        f"sharded planner {sharded}")
 
     a = stimes[ant.name]
     log(json.dumps({"kernels": [{
@@ -2191,7 +2499,7 @@ def main() -> int:
         "source": "icem_torch/csrc/planar_rollout.cu",
         "replaces": "icem_tpu/ops/planar_rollout.py:103",
         "launches": launches["planar"],
-        "max_abs_err": max(err, derr, perr, oerr),
+        "max_abs_err": max(err, derr, perr, oerr, sherr),
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
@@ -2203,7 +2511,7 @@ def main() -> int:
         "source": "icem_torch/csrc/spatial_rollout.cu",
         "replaces": "icem_tpu/ops/spatial_rollout.py:128",
         "launches": launches["spatial"],
-        "max_abs_err": max(serr, dserr, oserr),
+        "max_abs_err": max(serr, dserr, oserr, shserr),
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"],

@@ -96,6 +96,8 @@ class CemStdState(NamedTuple):
     mean: torch.Tensor           # [h, d]
     std: torch.Tensor            # [h, d]
     generator: torch.Generator   # the planner's random stream
+    # the sharded planner's rank streams (parallel/plan.py::RankStream)
+    rank_stream: Optional[tuple] = None
 
 
 class CemPlanResult(NamedTuple):
@@ -144,7 +146,7 @@ def plan_step(cfg: CemStdConfig, predict_fn, cost_fn, pstate: CemStdState, obs,
     weights, bound into its ``apply_fn`` (see icem.plan_step)."""
     if model_params is not None:
         predict_fn = partial(predict_fn, model_params)
-    mean, std, gen = pstate
+    mean, std, gen = pstate.mean, pstate.std, pstate.generator
     low, high = cfg.bounds(mean.device)
     shape = (cfg.num_simulated_trajectories, cfg.horizon, cfg.action_dim)
     best_actions = best_cost = best_last_obs = None
@@ -184,7 +186,7 @@ _CEM_STD_SAMPLER_KEYS = ("alpha", "elites_size", "opt_iterations", "init_std",
 
 class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
     """Controller with the reference API around ``plan_step`` and its state
-    (``verbose`` as in ``MpcICem``)."""
+    (``verbose`` and ``sharded`` as in ``MpcICem``)."""
 
     needs_forward_model = True
     _shape_fields = ("horizon", "action_dim")
@@ -200,9 +202,6 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
             raise ValueError(
                 f"factor_decrease_num={factor_decrease_num} has no effect on "
                 f"mpc-cem-std (no population decay); use mpc-icem, or drop the key")
-        if sharded is True:
-            raise NotImplementedError(
-                "sharded=True is not ported to icem_torch yet: it plans on one device")
         asp = dict(action_sampler_params or {})
         validate_sampler_params(asp, _CEM_STD_SAMPLER_KEYS)
         self.env = env
@@ -218,6 +217,9 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
             action_high=tuple(np.asarray(env.action_space.high).ravel().tolist()),
             **{k: asp[k] for k in _CEM_STD_SAMPLER_KEYS if k in asp},
         )
+        from icem_torch.parallel.plan import resolve_group
+        self._group = resolve_group(sharded, getattr(forward_model, "num_parallel", 0) or 0,
+                                    self.device)
         self.verbose = bool(verbose)
         self._seed = seed
         self._pstate: Optional[CemStdState] = None
@@ -232,9 +234,19 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
     def _as_tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def _plan_impl(self):
+        """(pstate, obs, model_state, model_params) -> CemPlanResult:
+        ``plan_step``, or ``cem_plan_step_sharded`` over the controller's
+        group."""
+        if self._group is None:
+            return partial(plan_step, self.cfg, self._planner_fn(), self.env.cost_fn)
+        from icem_torch.parallel.plan import cem_plan_step_sharded
+        return partial(cem_plan_step_sharded, self.cfg, self._planner_fn(), self.env.cost_fn,
+                       self._group)
+
     def beginning_of_rollout(self, *, observation, state=None, mode="train"):
         gen = Seeding.controller_generator(self._seed, "controller/cem-std", self.device)
-        self._pstate = init_state(self.cfg, gen)
+        self._pstate = self.init_plan_state(int(np.shape(observation)[-1]), gen)
         self._model_state = self.forward_model.got_actual_observation_and_env_state(
             observation=self._as_tensor(observation),
             env_state=None if state is None else self._as_tensor(state),
@@ -253,8 +265,8 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
             self.check_model_consistency(state)
         self._model_state = self.forward_model.got_actual_observation_and_env_state(
             observation=obs, env_state=state, model_state=self._model_state)
-        result = plan_step(self.cfg, self._planner_fn(), self.env.cost_fn, self._pstate, obs,
-                           self._model_state, self.live_model_params)
+        result = self._plan_impl()(self._pstate, obs, self._model_state,
+                                   self.live_model_params)
         self._pstate = result.state
         self.last_expected_cost = result.expected_cost
         self._after_action(obs, result.action)
@@ -262,17 +274,21 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
 
     # -- functional interface for device-side episode loops ------------------
     def init_plan_state(self, obs_dim: int, generator: torch.Generator) -> CemStdState:
-        return init_state(self.cfg, generator)
+        """A fresh planner state (see MpcICem.init_plan_state)."""
+        pstate = init_state(self.cfg, generator)
+        if self._group is None:
+            return pstate
+        from icem_torch.parallel.plan import init_rank_stream
+        return pstate._replace(rank_stream=init_rank_stream(generator))
 
     def functional_plan(self):
         """(pstate, obs, env_state, model_params=None) -> (action, pstate'),
-        on device tensors and with no host round trip (see MpcICem)."""
-        cfg, planner_fn, cost_fn = self.cfg, self._planner_fn(), self.env.cost_fn
+        on device tensors (see MpcICem)."""
+        plan_impl = self._plan_impl()
         init_model_state = self.forward_model.init_model_state
 
         def plan(pstate, obs, env_state, model_params=None):
-            res = plan_step(cfg, planner_fn, cost_fn, pstate, obs,
-                            init_model_state(obs, env_state), model_params)
+            res = plan_impl(pstate, obs, init_model_state(obs, env_state), model_params)
             return res.action, res.state
 
         return plan

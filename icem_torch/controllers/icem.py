@@ -125,6 +125,8 @@ class ICemState(NamedTuple):
     elite_last_obs: torch.Tensor  # [K, obs_dim] final predicted obs per elite
     have_elites: bool            # False until the first update
     generator: torch.Generator   # the planner's random stream
+    # the sharded planner's rank streams (parallel/plan.py::RankStream)
+    rank_stream: Optional[tuple] = None
 
 
 class PlanResult(NamedTuple):
@@ -415,7 +417,9 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
     ``verbose``: check the synced model against the env state at every step
     (``check_model_consistency``; one host read a step). ``do_visualize_plan``
     (True / "last" or "all"): replay every chosen plan through the env and
-    the model and report their divergence (``visualize_plan``).
+    the model and report their divergence (``visualize_plan``). ``sharded``
+    (False / True / "auto"): plan with the population sharded over a
+    process group (``parallel/plan.py::resolve_group``).
     """
 
     needs_forward_model = True
@@ -429,9 +433,6 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
                  sharded=False, cem_loop="auto", device=None, **kwargs):
         asp = dict(action_sampler_params or {})
         validate_sampler_params(asp, _ICEM_SAMPLER_KEYS)
-        if sharded is True:
-            raise NotImplementedError(
-                "sharded=True is not ported to icem_torch yet: it plans on one device")
         if cem_loop == "auto":
             # as in the JAX package: the spatial (3D) envs plan with the
             # scanned loop, the planar envs with the unrolled one
@@ -452,6 +453,14 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
             action_high=tuple(np.asarray(env.action_space.high).ravel().tolist()),
             **{k: asp[k] for k in _ICEM_SAMPLER_KEYS if k in asp},
         )
+        # multi-card planning is config-selectable (controller_params.sharded:
+        # false | true | "auto"); the model's num_parallel caps the group
+        from icem_torch.parallel.plan import resolve_group
+        self._group = resolve_group(sharded, getattr(forward_model, "num_parallel", 0) or 0,
+                                    self.device)
+        if self._group is not None and self.cfg.cem_loop == "scan":
+            print("MpcICem: cem_loop='scan' is single-device only; the sharded planner runs "
+                  "its unrolled loop")
         self.verbose = bool(verbose)
         self.do_visualize_plan = do_visualize_plan
         self._seed = seed
@@ -467,10 +476,18 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
     def _as_tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def _plan_impl(self):
+        """(pstate, obs, model_state, model_params) -> PlanResult: ``plan_step``,
+        or ``plan_step_sharded`` over the controller's group."""
+        if self._group is None:
+            return partial(plan_step, self.cfg, self._planner_fn(), self.env.cost_fn)
+        from icem_torch.parallel.plan import plan_step_sharded
+        return partial(plan_step_sharded, self.cfg, self._planner_fn(), self.env.cost_fn,
+                       self._group)
+
     def beginning_of_rollout(self, *, observation, state=None, mode="train"):
         gen = Seeding.controller_generator(self._seed, "controller/icem", self.device)
-        obs_dim = int(np.shape(observation)[-1])
-        self._pstate = init_state(self.cfg, obs_dim, gen)
+        self._pstate = self.init_plan_state(int(np.shape(observation)[-1]), gen)
         self._model_state = self.forward_model.got_actual_observation_and_env_state(
             observation=self._as_tensor(observation),
             env_state=None if state is None else self._as_tensor(state),
@@ -551,8 +568,8 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
             self.check_model_consistency(state)
         self._model_state = self.forward_model.got_actual_observation_and_env_state(
             observation=obs, env_state=state, model_state=self._model_state)
-        result = plan_step(self.cfg, self._planner_fn(), self.env.cost_fn, self._pstate, obs,
-                           self._model_state, self.live_model_params)
+        result = self._plan_impl()(self._pstate, obs, self._model_state,
+                                   self.live_model_params)
         self._pstate = result.state
         self.last_expected_cost = result.expected_cost
         if self.do_visualize_plan:
@@ -565,20 +582,26 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
 
     # -- functional interface for device-side episode loops ------------------
     def init_plan_state(self, obs_dim: int, generator: torch.Generator) -> ICemState:
-        return init_state(self.cfg, int(obs_dim), generator)
+        """A fresh planner state on ``generator``, with the rank streams of
+        the sharded planner where the controller has a group."""
+        pstate = init_state(self.cfg, int(obs_dim), generator)
+        if self._group is None:
+            return pstate
+        from icem_torch.parallel.plan import init_rank_stream
+        return pstate._replace(rank_stream=init_rank_stream(generator))
 
     def functional_plan(self):
         """(pstate, obs, env_state, model_params=None) -> (action, pstate'),
-        on device tensors and with no host round trip. A learned model's
-        weights enter as ``model_params`` (``live_model_params``); the model
-        state is synced from the observation at every step, as in the JAX
-        package."""
-        cfg, planner_fn, cost_fn = self.cfg, self._planner_fn(), self.env.cost_fn
+        on device tensors and with no host round trip but the sharded
+        planner's gather. A learned model's weights enter as ``model_params``
+        (``live_model_params``); the model state is synced from the
+        observation at every step, as in the JAX package. A sharded
+        controller plans sharded episodes."""
+        plan_impl = self._plan_impl()
         init_model_state = self.forward_model.init_model_state
 
         def plan(pstate, obs, env_state, model_params=None):
-            res = plan_step(cfg, planner_fn, cost_fn, pstate, obs,
-                            init_model_state(obs, env_state), model_params)
+            res = plan_impl(pstate, obs, init_model_state(obs, env_state), model_params)
             return res.action, res.state
 
         return plan

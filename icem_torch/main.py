@@ -15,6 +15,11 @@ line. The device is a flag, not a settings key, so settings files and the
 Usage:
     python -m icem_torch.main settings/halfcheetah_running/i-cem-blitz.json \\
         [key=value overrides] [--device cpu]
+
+On several cards, one process per card: ``ICEM_MULTIHOST=1 torchrun
+--nproc-per-node N -m icem_torch.main <settings>`` (or the ``ICEM_*`` launch
+line of ``parallel/multihost.py``); the shipped ``"sharded": "auto"``
+planners then shard their population over the ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from icem_torch.controllers import controller_from_string
 from icem_torch.device import resolve_device
 from icem_torch.envs import env_from_string
 from icem_torch.models import forward_model_from_string
+from icem_torch.parallel.multihost import maybe_initialize_distributed, shared_seed
 from icem_torch.runtime.buffer import RolloutBuffer
 from icem_torch.runtime.checkpoint import CheckpointManager, MainState
 from icem_torch.runtime.config import params_from_cmd_line, save_settings_to_json
@@ -78,13 +84,17 @@ def get_controllers(params, env, forward_model, device=None):
 def run(params, device=None) -> dict:
     """One full experiment on ``device`` (the card unless told otherwise);
     returns the accumulated reward dict."""
+    # multi-process entry (env-gated, before the first CUDA operation): it
+    # binds this rank's card, and sharded='auto' planners then span every
+    # rank (parallel/multihost.py documents the launch line)
+    maybe_initialize_distributed(device=device)
     device = resolve_device(device)
     model_dir = params.get("model_dir", "results/default")
     os.makedirs(model_dir, exist_ok=True)
     save_settings_to_json(params, model_dir)
     logger = get_logger(model_dir)
 
-    Seeding.set_seed(params.get("seed"))
+    Seeding.set_seed(shared_seed(params.get("seed")))
     logger.info(f"Using seed {Seeding.SEED} on {device}")
 
     env = env_from_string(params.env, **params.get("env_params", {}))

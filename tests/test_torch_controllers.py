@@ -353,14 +353,15 @@ def test_cem_std_rejects_population_decay_and_other_options():
     with pytest.raises(ValueError, match="factor_decrease_num"):
         tcs.MpcCemStd(env=env, forward_model=model, horizon=5, num_simulated_trajectories=8,
                       factor_decrease_num=1.25, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tcs.MpcCemStd(env=env, forward_model=model, sharded=True, device="cpu")
+    # sharded planning is ported (tests/test_torch_parallel.py)
+    assert tcs.MpcCemStd(env=env, forward_model=model, sharded=True, device="cpu")._group.size == 1
     with pytest.raises(TypeError, match="unknown action_sampler_params"):
         tcs.MpcCemStd(env=env, forward_model=model, device="cpu",
                       action_sampler_params=dict(noise_beta=1.0))
     with pytest.raises(ValueError, match="two trajectories"):
         tcs.CemStdConfig(num_simulated_trajectories=1)
     ctrl = tcs.MpcCemStd(env=env, forward_model=model, device="cpu", sharded="auto")
+    assert ctrl._group is None  # one process: "auto" plans unsharded
     assert ctrl.model_evals_per_timestep == 40 * 3 * 30 == ctrl.cfg.model_evals_per_timestep
 
 

@@ -188,8 +188,11 @@ def test_unported_options_raise():
         tic.ICemConfig(cem_loop="while")
     env = HalfCheetah(**KW)
     model = GroundTruthModel(env=env)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tic.MpcICem(env=env, forward_model=model, sharded=True, device="cpu")
+    # sharded planning is ported (tests/test_torch_parallel.py): with no
+    # process group up, sharded=True plans over a one-rank group
+    sharded = tic.MpcICem(env=env, forward_model=model, sharded=True, device="cpu")
+    assert (sharded._group.size, sharded._group.backend) == (1, "gloo")
+    assert tic.MpcICem(env=env, forward_model=model, sharded="auto", device="cpu")._group is None
     # the plan replay is ported (tests/test_torch_controllers.py), its video
     # mode too (tests/test_torch_video.py)
     assert tic.MpcICem(env=env, forward_model=model, do_visualize_plan="record",

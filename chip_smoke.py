@@ -99,7 +99,20 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     (returns beside success rates), and HalfCheetah with a ``random``
     initial phase (200-step episodes), as in step 11; the host waits of
     every run are printed by source line;
-20. [autodiff]: the autodiff engines (``envs/physics/planar.py``,
+20. [graph]: the compiled steps (``icem_torch/runtime/graphs.py``). Twelve
+    paths (``GRAPH_PATHS``): the main path at bench.py's population 32,768
+    (20 plan steps), HalfCheetah i-cem-blitz and cem-std, Ant (the scanned
+    loop, B2), HumanoidStandup, the Hopper, the mountain car, Door,
+    FetchReach, the ensemble HalfCheetah, planet cheetah_run (the host loop)
+    and a valve HalfCheetah (its real step on the autodiff engine), each
+    driven from one seed twice eagerly (``disable_graphs()``) and once from
+    CUDA graphs: the graph run's actions, planner means and stds and
+    rewards must be the eager run's bits (or within the eager-vs-eager gap,
+    where one exists), with no host wait inside a replayed step and the
+    same kernel launches; it prints ms per control step both ways, the
+    device idle share of each under the profiler, captures and capture
+    seconds, and launches per replay;
+21. [autodiff]: the autodiff engines (``envs/physics/planar.py``,
     ``spatial.py``) on the card, for each of the six planar shapes, Ant3D
     and HumanoidStandup3D: one control step of 4 states against the same
     code on the CPU and against kernel B1 / B2 at P = 1, h = 1 from the same
@@ -108,13 +121,13 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     without and with the energy valve; then 20 real steps of a valve
     HalfCheetah under MpcICem (the real step on the autodiff engine, the
     planner on B1);
-21. [video]: the driver on settings/halfcheetah_running/i-cem-blitz.json and
+22. [video]: the driver on settings/halfcheetah_running/i-cem-blitz.json and
     ant/i-cem-blitz.json, 20 steps, with rollout_params.record and without:
     each AVI holds one frame per step and parses; ms per control step
     recorded and unrecorded, ms per rendered frame, seconds to write an
     episode's AVI and GIF; then one ``get_action`` with
     do_visualize_plan="record".
-22. [sharded]: the sharded planner (``icem_torch/parallel``), last. One
+23. [sharded]: the sharded planner (``icem_torch/parallel``), last. One
     rank under NCCL in this process: the driver on
     settings/halfcheetah_running/i-cem-blitz.json and cem-std.json with
     controller_params.sharded=true (1,000 steps each, held as in step 11 and
@@ -129,7 +142,10 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     one-process emulation of the sharded plan on the card.
 
 The MpcICem phases build their controllers from the settings files as the
-driver does (``icem_torch.main.get_controllers``).
+driver does (``icem_torch.main.get_controllers``). Every controller, device
+episode and host-loop env step replays CUDA graphs, as a user's run does
+(the sharded planner excepted); steps 4 and 7 call ``plan_step`` directly,
+eagerly, and [graph] holds the graphs against eager runs.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result. It also fails where there is no CUDA device: nothing runs on the CPU.
@@ -1839,6 +1855,216 @@ def phase_driver_resume(device, workdir: str):
 
 
 # ---------------------------------------------------------------------------
+# the compiled step: CUDA graphs against eager dispatch
+
+_MAIN_PATH_WIDTHS = ("controller_params.num_simulated_trajectories=32768",
+                     "controller_params.action_sampler_params.elites_size=512")
+# (tag, settings, overrides, control steps, steps of each idle window, the
+# episode loop). The main path at bench.py's population; the others as
+# their settings ship them (the driver cells of [driver] and [learned]),
+# each for a few control steps: the eager reference runs twice
+GRAPH_PATHS = (
+    ("main", "halfcheetah_running/i-cem-blitz", _MAIN_PATH_WIDTHS, 20, 3, "device"),
+    ("i-cem-blitz", "halfcheetah_running/i-cem-blitz", (), 20, 10, "device"),
+    ("cem-std", "halfcheetah_running/cem-std", (), 20, 10, "device"),
+    ("ant", "ant/i-cem-blitz", (), 20, 10, "device"),
+    ("humanoid_standup", "humanoid_standup/i-cem-blitz", (), 10, 5, "device"),
+    ("hopper", "hopper/i-cem-blitz", (), 20, 10, "device"),
+    ("mountain_car", "mountain_car/i-cem-best", (), 6, 1, "device"),
+    ("door", "door/i-cem-blitz", (), 6, 1, "device"),
+    ("fetch_reach", "fetch_reach/i-cem-blitz", (), 10, 3, "device"),
+    ("ensemble", "halfcheetah_running/ensemble-icem", (), 10, 3, "device"),
+    ("planet", "planet/cheetah_run", (), 6, 1, "host"),
+    # the real step on the autodiff engine (the energy valve), the planner
+    # on B1
+    ("valve", "halfcheetah_running/i-cem-blitz", (), 5, 1, "device"),
+)
+
+
+def _graph_setup(device, name: str, overrides, valve: bool):
+    """(env, controller, rollout manager) of settings/<name>.json, built as
+    the driver builds them after ``Seeding.set_seed(SEED)``: the same
+    weights, streams and states for every run of a path."""
+    import dataclasses
+
+    from icem_torch.envs import env_from_string
+    from icem_torch.main import get_controllers
+    from icem_torch.models import forward_model_from_string
+    from icem_torch.runtime.config import apply_overrides, resolve_settings
+    from icem_torch.runtime.rollout import RolloutManager
+    from icem_torch.runtime.seeding import Seeding
+
+    params = apply_overrides(resolve_settings(f"settings/{name}.json"),
+                             [*overrides, f"seed={SEED}"])
+    Seeding.set_seed(SEED)
+    env = env_from_string(params.env, **params.get("env_params", {}))
+    if valve:
+        env.model = dataclasses.replace(env.model, energy_valve=True)
+    model = forward_model_from_string(params.forward_model)(
+        env=env, device=device, **params.get("forward_model_params", {}))
+    ctrl = get_controllers(params, env, model, device)[1]
+    return env, ctrl, RolloutManager(env, params.rollout_params, device=device)
+
+
+def _graph_drive(env, ctrl, rm, steps: int, loop: str, device):
+    """``steps`` control steps from one seeded start: the device episode's
+    control step (``RolloutManager._control_step``, one replay each), or the
+    host loop (``get_action`` and the compiled env step). Returns what is
+    held (actions, the planner's means and stds, rewards, as host arrays),
+    the host-clock ms of each step, and a function that runs more steps on
+    from there (the idle window)."""
+    from icem_torch.runtime.seeding import Seeding
+
+    state, obs = env.reset_with_mode(Seeding.generator_for("graph/env", device), "train")
+    out = {"actions": [], "means": [], "stds": [], "rewards": []}
+    ms = []
+    if loop == "device":
+        step = rm._control_step(ctrl)
+        carry = [ctrl.init_plan_state(env.obs_dim, Seeding.generator_for("graph/plan", device)),
+                 state, obs, torch.zeros((), device=device)]
+        a0 = 2 * env.obs_dim
+
+        def one():
+            pstate, s, o, done, row = step(*carry, ctrl.live_model_params)
+            carry[:] = pstate, s, o, done
+            return row[a0: a0 + env.action_dim], pstate, row[a0 + env.action_dim]
+    else:
+        env_state = [state, obs]
+        ctrl.beginning_of_rollout(observation=obs, state=state if rm.use_env_states else None)
+
+        def one():
+            s, o = env_state
+            a = ctrl.get_action(o, s if rm.use_env_states else None)
+            s, o, r, _ = rm._env_step(s, torch.as_tensor(a, device=device))
+            env_state[:] = s, o
+            return torch.as_tensor(a), ctrl._pstate, r
+
+    def run(n: int):
+        for _ in range(n):
+            one()
+
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        action, pstate, reward = one()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out["actions"].append(action.cpu())
+        out["means"].append(pstate.mean.cpu())
+        out["stds"].append(pstate.std.cpu())
+        out["rewards"].append(reward.cpu())
+    return {k: torch.stack(v).numpy() for k, v in out.items()}, ms, run
+
+
+def _max_gap(a: dict, b: dict) -> float:
+    """The largest |a - b| over every held field; inf where they differ in
+    shape or in which entries are finite."""
+    gap = 0.0
+    for k in a:
+        x, y = a[k], b[k]
+        if x.shape != y.shape or not np.array_equal(np.isfinite(x), np.isfinite(y)):
+            return float("inf")
+        fin = np.isfinite(x)
+        if fin.any():
+            gap = max(gap, float(np.max(np.abs(x[fin] - y[fin]))))
+    return gap
+
+
+def _bits_equal(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+
+
+def phase_graph(device):
+    """[graph]: each path of GRAPH_PATHS driven from one seed three times:
+    twice eagerly (``disable_graphs()``; the second run measures the
+    eager-vs-eager gap), then from CUDA graphs (the default). Held: the graph
+    run's actions, planner means and stds and rewards are the eager run's
+    bits, or within the measured eager-vs-eager gap where one exists; no
+    host wait inside a replayed step; the graph run launches each kernel as
+    often as the eager run. Printed: ms per control step both ways (host
+    clock, median after the captures), the device idle share of each under
+    the profiler, captures and capture seconds, and launches per replay.
+    Returns the launches of each kernel in the graph runs."""
+    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime import graphs
+
+    counters = {"planar": planar_rollout, "spatial": spatial_rollout}
+    totals = {k: 0 for k in counters}
+    t_phase = time.perf_counter()
+    waits_in_replays = []
+    real_run = graphs.Compiled._run
+
+    def counted_run(self, entry, tensors, generators):
+        # host waits inside a replayed step (the CPU plumbing never runs here)
+        if entry.graph is None:
+            return real_run(self, entry, tensors, generators)
+        with host_waits() as w:
+            out = real_run(self, entry, tensors, generators)
+        waits_in_replays.append(w[0])
+        return out
+
+    graphs.Compiled._run = counted_run
+    try:
+        for tag, name, overrides, steps, idle_steps, loop in GRAPH_PATHS:
+            t_path = time.perf_counter()
+            runs = {}
+            for mode in ("eager", "eager again", "graph"):
+                for m in counters.values():
+                    m.LAUNCHES = 0
+                before = graphs.REPLAYS, graphs.CAPTURES, graphs.CAPTURE_SECONDS
+                waits_in_replays.clear()
+                ctx = graphs.disable_graphs() if mode != "graph" else contextlib.nullcontext()
+                with ctx:
+                    env, ctrl, rm = _graph_setup(device, name, overrides, tag == "valve")
+                    held, ms, more = _graph_drive(env, ctrl, rm, steps, loop, device)
+                    launches = {k: m.LAUNCHES for k, m in counters.items()}
+                    replays, captures, capture_s = (
+                        a - b for a, b in zip((graphs.REPLAYS, graphs.CAPTURES,
+                                               graphs.CAPTURE_SECONDS), before))
+                    waits = sum(waits_in_replays)
+                    idle = None
+                    if mode != "eager again":
+                        idle = profile_window(lambda: more(idle_steps), idle_steps,
+                                              f"graph {tag} {mode}")
+                runs[mode] = dict(held=held, ms=float(np.median(ms[2:])), launches=launches,
+                                  replays=replays, captures=captures, capture_s=capture_s,
+                                  waits=waits, idle=idle)
+            eager, graph = runs["eager"], runs["graph"]
+            gap = _max_gap(eager["held"], runs["eager again"]["held"])
+            err = _max_gap(eager["held"], graph["held"])
+            same = _bits_equal(eager["held"], graph["held"])
+            per_replay = {k: n / max(graph["replays"], 1) for k, n in graph["launches"].items()}
+            idle = {m: "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
+                    for m, r in runs.items()}
+            cut = f" {' '.join(overrides)}" if overrides else ""
+            bits = "the same bits" if same else f"max |d| {err:.3e}"
+            log(f"[graph] {tag} (settings/{name}.json{cut}, {loop} loop, {steps} control steps): "
+                f"eager {eager['ms']:.3f} ms per control step, graph {graph['ms']:.3f} "
+                f"({eager['ms'] / graph['ms']:.2f}x); device idle share eager {idle['eager']}, "
+                f"graph {idle['graph']}; {graph['captures']} captures in "
+                f"{graph['capture_s']:.3f} s, {graph['replays']} replays, launches per replay "
+                f"{per_replay}; host waits inside replayed steps {graph['waits']}")
+            log(f"[graph] {tag}: graph against eager {bits}; eager against eager max |d| "
+                f"{gap:.3e}; launches eager {eager['launches']}, graph {graph['launches']}")
+            check(graph["captures"] > 0 and graph["replays"] >= steps,
+                  f"graph {tag}: {graph['captures']} captures, {graph['replays']} replays")
+            check(eager["captures"] == 0 and eager["replays"] == 0,
+                  f"graph {tag}: the eager run replayed graphs")
+            check(same or err <= gap, f"graph {tag}: graph against eager max |d| {err:.3e} "
+                  f"beyond the eager-vs-eager gap {gap:.3e}")
+            check(graph["waits"] == 0, f"graph {tag}: {graph['waits']} host waits in replays")
+            check(graph["launches"] == eager["launches"],
+                  f"graph {tag}: launches {graph['launches']} against eager {eager['launches']}")
+            for k in totals:
+                totals[k] += graph["launches"][k]
+            log(f"[wall] {time.perf_counter() - t_path:.1f} s: the graph phase's {tag} path")
+    finally:
+        graphs.Compiled._run = real_run
+    log(f"[wall] {time.perf_counter() - t_phase:.1f} s: the graph phase")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # the autodiff engines and the tooling
 
 AUTODIFF_P = 2
@@ -2473,6 +2699,8 @@ def main() -> int:
         driver, driver_ms = phase_driver(device, workdir)
         phase_driver_resume(device, workdir)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the driver")
+        graph = phase_graph(device)
+        log(f"[wall] {time.perf_counter() - t_start:.1f} s: the compiled steps")
         t_new = time.perf_counter()
         autodiff = phase_autodiff(device)
         video = phase_video(device, workdir)
@@ -2482,15 +2710,20 @@ def main() -> int:
         sharded, sherr, shserr = phase_sharded(device, workdir, driver_ms)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the sharded planner")
     log(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s after start-up")
+    from icem_torch.runtime import graphs
+
+    log(f"[graph] the whole script: {graphs.CAPTURES} captures in {graphs.CAPTURE_SECONDS:.1f} s "
+        f"({graphs.CAPTURE_SECONDS / max(graphs.CAPTURES, 1):.3f} s each on average, warm-up "
+        f"included), {graphs.REPLAYS} replays")
     # each path's launches, read just after it ran with the counts at 0
-    launches = {k: driver[k] + other[k] + learned[k] + autodiff[k] + video[k] + sharded[k]
-                for k in driver}
+    launches = {k: driver[k] + other[k] + learned[k] + graph[k] + autodiff[k] + video[k]
+                + sharded[k] for k in driver}
     launches["planar"] += path["launches"]
     launches["spatial"] += spath["launches"]
     log(f"[launches] main paths: planar {path['launches']}, spatial {spath['launches']}; "
         f"the other controllers {other}; the learned-model runs {learned}; the driver runs "
-        f"{driver}; the valve HalfCheetah {autodiff}; the recorded episodes {video}; the "
-        f"sharded planner {sharded}")
+        f"{driver}; the graph runs of the compiled steps {graph}; the valve HalfCheetah "
+        f"{autodiff}; the recorded episodes {video}; the sharded planner {sharded}")
 
     a = stimes[ant.name]
     log(json.dumps({"kernels": [{

@@ -31,6 +31,7 @@ from icem_torch.controllers.icem import (action_bounds, best_candidate, top_k_as
 from icem_torch.controllers.mpc_common import ModelConsistencyMixin, PlannerCheckpointMixin
 from icem_torch.device import indexed, resolve_device
 from icem_torch.models.base import rollout_open_loop, trajectory_cost
+from icem_torch.runtime.graphs import Compiled
 from icem_torch.runtime.seeding import Seeding
 
 # the uniform draw of the inverse CDF stays off 0 and 1
@@ -220,6 +221,9 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
         from icem_torch.parallel.plan import resolve_group
         self._group = resolve_group(sharded, getattr(forward_model, "num_parallel", 0) or 0,
                                     self.device)
+        if self._group is not None:
+            print("MpcCemStd: the sharded planner plans eagerly (no CUDA graph)")
+        self._compiled_plan = None
         self.verbose = bool(verbose)
         self._seed = seed
         self._pstate: Optional[CemStdState] = None
@@ -231,15 +235,25 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
     def model_evals_per_timestep(self):
         return self.cfg.model_evals_per_timestep
 
+    @property
+    def plans_eagerly(self) -> bool:
+        """True for the sharded planner, which no CUDA graph captures: the
+        device episode then runs its control steps eagerly too."""
+        return self._group is not None
+
     def _as_tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _plan_impl(self):
         """(pstate, obs, model_state, model_params) -> CemPlanResult:
-        ``plan_step``, or ``cem_plan_step_sharded`` over the controller's
-        group."""
+        ``plan_step`` as a compiled step (``runtime/graphs.py``), or
+        ``cem_plan_step_sharded`` over the controller's group, eagerly."""
         if self._group is None:
-            return partial(plan_step, self.cfg, self._planner_fn(), self.env.cost_fn)
+            if self._compiled_plan is None:
+                self._compiled_plan = Compiled(
+                    partial(plan_step, self.cfg, self._planner_fn(), self.env.cost_fn),
+                    in_place=(3,), reads=self.forward_model.graph_reads, name="MpcCemStd.plan_step")
+            return self._compiled_plan
         from icem_torch.parallel.plan import cem_plan_step_sharded
         return partial(cem_plan_step_sharded, self.cfg, self._planner_fn(), self.env.cost_fn,
                        self._group)

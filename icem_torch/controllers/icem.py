@@ -37,6 +37,7 @@ from icem_torch.controllers.mpc_common import ModelConsistencyMixin, PlannerChec
 from icem_torch.device import indexed, on_device, resolve_device
 from icem_torch.models.base import batch_tree, rollout_open_loop, trajectory_cost, unbatch_tree
 from icem_torch.ops.colored_noise import sample_colored_action_noise
+from icem_torch.runtime.graphs import Compiled
 from icem_torch.runtime.seeding import Seeding
 from icem_torch.runtime.video import VideoRecorder
 
@@ -461,6 +462,9 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
         if self._group is not None and self.cfg.cem_loop == "scan":
             print("MpcICem: cem_loop='scan' is single-device only; the sharded planner runs "
                   "its unrolled loop")
+        if self._group is not None:
+            print("MpcICem: the sharded planner plans eagerly (no CUDA graph)")
+        self._compiled_plan = None
         self.verbose = bool(verbose)
         self.do_visualize_plan = do_visualize_plan
         self._seed = seed
@@ -473,14 +477,26 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
     def model_evals_per_timestep(self):
         return self.cfg.model_evals_per_timestep
 
+    @property
+    def plans_eagerly(self) -> bool:
+        """True for the sharded planner, which no CUDA graph captures: the
+        device episode then runs its control steps eagerly too."""
+        return self._group is not None
+
     def _as_tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _plan_impl(self):
-        """(pstate, obs, model_state, model_params) -> PlanResult: ``plan_step``,
-        or ``plan_step_sharded`` over the controller's group."""
+        """(pstate, obs, model_state, model_params) -> PlanResult: ``plan_step``
+        as a compiled step (``runtime/graphs.py``; one graph per shape and
+        ``have_elites``), or ``plan_step_sharded`` over the controller's
+        group, eagerly."""
         if self._group is None:
-            return partial(plan_step, self.cfg, self._planner_fn(), self.env.cost_fn)
+            if self._compiled_plan is None:
+                self._compiled_plan = Compiled(
+                    partial(plan_step, self.cfg, self._planner_fn(), self.env.cost_fn),
+                    in_place=(3,), reads=self.forward_model.graph_reads, name="MpcICem.plan_step")
+            return self._compiled_plan
         from icem_torch.parallel.plan import plan_step_sharded
         return partial(plan_step_sharded, self.cfg, self._planner_fn(), self.env.cost_fn,
                        self._group)

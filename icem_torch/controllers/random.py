@@ -10,7 +10,10 @@ Counterpart of ``icem_tpu/controllers/random.py``:
 
 Randomness comes from an explicit ``torch.Generator``, so the draws differ
 from the JAX package's. Neither controller's functional plan makes a host
-round trip: the redraw schedule is fixed, so its counter is a Python int.
+round trip: the redraw schedule is fixed, so its counter is a Python int. On
+the card the draws and the random shooting's plan step are compiled steps
+(``runtime/graphs.py``); in a device episode the counter is a static leaf of
+the captured control step, which picks its draw or hold graph.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from icem_torch.controllers.mpc_common import ModelConsistencyMixin
 from icem_torch.device import resolve_device
 from icem_torch.models.base import rollout_open_loop, trajectory_cost
 from icem_torch.runtime.checkpoint import pack_pytree, unpack_pytree
+from icem_torch.runtime.graphs import Compiled
 from icem_torch.runtime.seeding import Seeding
 
 
@@ -66,10 +70,11 @@ class RndController:
         self._generator = Seeding.controller_generator(seed, "controller/rnd", self.device)
         self._counter = 0
         self._current = None
+        self._sample = Compiled(env.action_space.sample, name="RndController.sample")
 
     def get_action(self, obs, state=None, mode="train"):
         if self._current is None or self._counter >= self.action_change_frequency:
-            self._current = self.env.action_space.sample(self._generator).cpu().numpy()
+            self._current = self._sample(self._generator).cpu().numpy()
             self._counter = 0
         self._counter += 1
         return self._current
@@ -89,7 +94,7 @@ class RndController:
                 torch.zeros(self.env.action_space.dim, device=generator.device))
 
     def functional_plan(self):
-        sample, freq = self.env.action_space.sample, self.action_change_frequency
+        sample, freq = self._sample, self.action_change_frequency
 
         def plan(ps, obs, env_state, model_params=None):
             generator, count, current = ps
@@ -149,6 +154,8 @@ class MpcRandom(ModelConsistencyMixin):
         self._generator = None
         self._model_state = None
         self.last_expected_cost = None
+        self._compiled_plan = Compiled(self._plan_step, reads=self.forward_model.graph_reads,
+                                       name="MpcRandom.plan_step")
 
     @property
     def model_evals_per_timestep(self):
@@ -157,7 +164,10 @@ class MpcRandom(ModelConsistencyMixin):
     def plan_step(self, generator: torch.Generator, obs, model_state):
         """(first action of the cheapest sequence, its cost), through the
         model's ``predict_fn`` (a learned model's is bound to its live
-        weights)."""
+        weights), as a compiled step."""
+        return self._compiled_plan(generator, obs, model_state)
+
+    def _plan_step(self, generator: torch.Generator, obs, model_state):
         low, high = self.env.action_space.bounds(obs.device)
         actions = sample_held_action_sequences(generator, low, high, self.num_sim_traj,
                                                self.horizon, self.action_change_frequency)

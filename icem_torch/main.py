@@ -11,10 +11,14 @@ Episodes run on the card (``runtime/rollout.py``) unless the caller asks for
 the CPU: ``run(params, device="cpu")``, or ``--device cpu`` on the command
 line. The device is a flag, not a settings key, so settings files and the
 ``settings.json`` a run writes stay as the JAX driver reads and writes them.
+On the card every plan step, device-episode control step and host-loop env
+step replays a CUDA graph (``runtime/graphs.py``); ``run(params,
+eager=True)``, or ``--eager``, runs them eagerly (``disable_graphs()``), also
+a flag and not a settings key.
 
 Usage:
     python -m icem_torch.main settings/halfcheetah_running/i-cem-blitz.json \\
-        [key=value overrides] [--device cpu]
+        [key=value overrides] [--device cpu] [--eager]
 
 On several cards, one process per card: ``ICEM_MULTIHOST=1 torchrun
 --nproc-per-node N -m icem_torch.main <settings>`` (or the ``ICEM_*`` launch
@@ -25,6 +29,7 @@ planners then shard their population over the ranks.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -39,6 +44,7 @@ from icem_torch.parallel.multihost import maybe_initialize_distributed, shared_s
 from icem_torch.runtime.buffer import RolloutBuffer
 from icem_torch.runtime.checkpoint import CheckpointManager, MainState
 from icem_torch.runtime.config import params_from_cmd_line, save_settings_to_json
+from icem_torch.runtime.graphs import disable_graphs
 from icem_torch.runtime.metrics import get_logger
 from icem_torch.runtime.rollout import RolloutManager, compute_reward_info
 from icem_torch.runtime.seeding import Seeding
@@ -81,9 +87,15 @@ def get_controllers(params, env, forward_model, device=None):
     return initial_controller, main_controller
 
 
-def run(params, device=None) -> dict:
+def run(params, device=None, eager: bool = False) -> dict:
     """One full experiment on ``device`` (the card unless told otherwise);
-    returns the accumulated reward dict."""
+    returns the accumulated reward dict. ``eager``: no CUDA graph, every
+    compiled step runs eagerly (``disable_graphs()``)."""
+    with disable_graphs() if eager else contextlib.nullcontext():
+        return _run(params, device)
+
+
+def _run(params, device) -> dict:
     # multi-process entry (env-gated, before the first CUDA operation): it
     # binds this rank's card, and sharded='auto' planners then span every
     # rank (parallel/multihost.py documents the launch line)
@@ -250,9 +262,11 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="'cpu' runs the plain PyTorch versions on the CPU; "
                              "default: the CUDA device")
+    parser.add_argument("--eager", action="store_true",
+                        help="run the steps eagerly instead of replaying CUDA graphs")
     args, rest = parser.parse_known_args(argv[1:])
     params = params_from_cmd_line([argv[0]] + rest)
-    return run(params, device=args.device)
+    return run(params, device=args.device, eager=args.eager)
 
 
 if __name__ == "__main__":

@@ -146,6 +146,13 @@ class ForwardModel:
         """Sync the model to reality at the start of each planning step."""
         return self.init_model_state(observation, env_state)
 
+    def graph_reads(self):
+        """The generators and tensors that ``predict_fn`` and ``apply_fn``
+        reach through the model rather than through their arguments: a
+        compiled step registers the generators and keys on the tensors'
+        addresses (``runtime/graphs.py``). Empty for a model without them."""
+        return ()
+
     # -- driver lifecycle (no-ops for models without weights) ---------------
     def train(self, buffer):
         return {}

@@ -183,6 +183,10 @@ class LearnedModel(ForwardModel):
     def params(self) -> dict:
         return self.net.tree()
 
+    def graph_reads(self):
+        """The model's generator (the TS1 and prior draws) and its weights."""
+        return self._generator, self.params
+
     def save(self, path):
         state = {"format": FILE_FORMAT,
                  "params": pack_pytree(self.params),

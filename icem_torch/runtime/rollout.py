@@ -10,15 +10,20 @@ RolloutManager, icem/misc/rollout_utils.py:38-345), with its two paths:
    state is drawn on the host before each action.
 
 2. ``sample_on_device`` — the device-resident episode, for a controller with
-   ``functional_plan`` / ``init_plan_state`` (the MPC planners). Planner and
-   env step run in a Python loop over device tensors with no host round trip
-   inside the episode: termination freezes the state with ``torch.where``
-   instead of breaking, and the transitions go into one preallocated
-   ``[T, width]`` device tensor, a row per step, that reaches the host once
-   per chunk. The JAX package runs
-   the same loop as one ``lax.scan`` over a vmapped batch of episodes; here
-   the episodes of one call run one after another, each with its own env
-   and planner generators.
+   ``functional_plan`` / ``init_plan_state`` (the MPC planners). One control
+   step (plan, env step, the termination freeze, the transition row) is a
+   compiled step (``runtime/graphs.py``), captured once per manager and
+   policy and replayed: the counterpart of the body of the JAX package's
+   ``chunk_fn`` scan. There is no host round trip inside the episode:
+   termination freezes the state with ``torch.where`` instead of breaking,
+   and each step's row goes into one preallocated ``[T, width]`` device
+   tensor that reaches the host once per chunk. The JAX package runs the
+   loop as one ``lax.scan`` over a vmapped batch of episodes; here the
+   episodes of one call run one after another, each with its own env and
+   planner generators.
+
+The host loop's env step is a compiled step too, as the JAX package jits
+``env.step`` there.
 
 Termination semantics, the same on both paths: a non-finite next
 observation or state ends the episode and its own transition is invalid; a
@@ -36,6 +41,7 @@ import torch
 
 from icem_torch.device import resolve_device
 from icem_torch.runtime.buffer import Rollout, RolloutBuffer
+from icem_torch.runtime.graphs import Compiled
 from icem_torch.runtime.seeding import Seeding
 from icem_torch.runtime.video import VideoRecorder
 
@@ -69,6 +75,10 @@ class RolloutManager:
             self.fuse_on_device = bool(self.fuse_on_device)
         self._episode_counter = 0
         self._epoch = 0
+        self._env_step = Compiled(env.step, name=f"{type(env).__name__}.step")
+        # the compiled control step of each policy's device episodes:
+        # id(policy) -> (policy, step)
+        self._control_steps: dict = {}
 
     def set_epoch(self, epoch: int):
         """Fold the training iteration into the episode streams so a resumed
@@ -133,7 +143,7 @@ class RolloutManager:
             env_state = state if self.use_env_states else None
             action = policy.get_action(obs, env_state, mode=mode)
             action_t = torch.as_tensor(action, dtype=torch.float32, device=self.device)
-            next_state, next_obs, reward, done = env.step(state, action_t)
+            next_state, next_obs, reward, done = self._env_step(state, action_t)
             next_obs_np = next_obs.cpu().numpy()
             if not np.all(np.isfinite(next_obs_np)):
                 # physics blow-up containment: end the episode here rather
@@ -184,12 +194,55 @@ class RolloutManager:
         if chunk is None or chunk >= horizon:
             chunk = horizon
         stream = self._episode_stream(mode)
-        plan = policy.functional_plan()
-        return [self._device_episode(policy, plan, mode, f"{stream}/{i}", chunk)
+        return [self._device_episode(policy, mode, f"{stream}/{i}", chunk)
                 for i in range(no_rollouts)]
 
-    def _device_episode(self, policy, plan, mode: str, stream: str, chunk: int) -> Rollout:
+    def _control_step(self, policy):
+        """The compiled control step of ``policy``'s device episodes,
+        (pstate, state, obs, done_before, model_params) -> (pstate', state',
+        obs', done_after, row), made once per policy and kept: its graphs
+        serve every later episode."""
+        held = self._control_steps.get(id(policy))
+        if held is not None and held[0] is policy:
+            return held[1]
+        env, use_env_states = self.env, self.use_env_states
+        plan = policy.functional_plan()
+
+        def control_step(pstate, state, obs, done_before, model_params):
+            action, pstate = plan(pstate, obs, state if use_env_states else None, model_params)
+            state2, obs2, rew, done = env.step(state, action)
+            # a non-finite next observation or state is terminal AND its own
+            # transition is invalid (the host path breaks before appending it)
+            blown = ~(torch.isfinite(obs2).all() & torch.isfinite(state2).all())
+            blown_f = blown.to(torch.float32)
+            # freeze after termination or blow-up at the last finite state
+            dead = (done_before > 0) | blown
+            keep = (1.0 - done_before) * (1.0 - blown_f)
+            state2 = torch.where(dead, state, state2)
+            obs2 = torch.where(dead, obs, obs2)
+            zero = torch.zeros((), device=obs.device)
+            # zeroed, not multiplied by 0: the blown step's reward may be NaN
+            rew = torch.where(keep > 0, rew, zero)
+            succ = env.is_success(obs, action, obs2)
+            succ = zero if succ is None else succ
+            done_after = torch.maximum(done_before, torch.maximum(done, blown_f))
+            # one row: obs, next obs, action, reward, done, keep, success
+            row = torch.cat([obs, obs2, action, torch.stack([rew, done_after, keep, succ])])
+            return pstate, state2, obs2, done_after, row
+
+        if getattr(policy, "plans_eagerly", False):
+            step = control_step
+        else:
+            model = getattr(policy, "forward_model", None)
+            step = Compiled(control_step, in_place=(4,),
+                            reads=getattr(model, "graph_reads", None),
+                            name=f"{type(policy).__name__} control step")
+        self._control_steps[id(policy)] = (policy, step)
+        return step
+
+    def _device_episode(self, policy, mode: str, stream: str, chunk: int) -> Rollout:
         env, device, horizon = self.env, self.device, self.task_horizon
+        step = self._control_step(policy)
         # a learned model's weights as they are at the episode's start: the
         # tensors share the trained ones' storage, so they are the latest
         model_params = getattr(policy, "live_model_params", None)
@@ -198,36 +251,16 @@ class RolloutManager:
                                         Seeding.generator_for(f"{stream}/plan", device))
         has_success = env.is_success(obs, torch.zeros(env.action_dim, device=device),
                                      obs) is not None
-        # one row per step: obs, next obs, action, reward, done, keep, success
         widths = (env.obs_dim, env.obs_dim, env.action_dim, 1, 1, 1, 1)
         buf = torch.zeros((horizon, sum(widths)), device=device)
         host = np.zeros(tuple(buf.shape), np.float32)
         done_before = torch.zeros((), device=device)
-        zero = torch.zeros((), device=device)
 
         for start in range(0, horizon, chunk):
             stop = min(start + chunk, horizon)
             for t in range(start, stop):
-                action, pstate = plan(pstate, obs,
-                                      state if self.use_env_states else None, model_params)
-                state2, obs2, rew, done = env.step(state, action)
-                # a non-finite next observation or state is terminal AND its
-                # own transition is invalid (the host path breaks before
-                # appending it)
-                blown = ~(torch.isfinite(obs2).all() & torch.isfinite(state2).all())
-                blown_f = blown.to(torch.float32)
-                # freeze after termination or blow-up at the last finite state
-                dead = (done_before > 0) | blown
-                keep = (1.0 - done_before) * (1.0 - blown_f)
-                state2 = torch.where(dead, state, state2)
-                obs2 = torch.where(dead, obs, obs2)
-                # zeroed, not multiplied by 0: the blown step's reward may be NaN
-                rew = torch.where(keep > 0, rew, zero)
-                succ = env.is_success(obs, action, obs2) if has_success else zero
-                done_after = torch.maximum(done_before, torch.maximum(done, blown_f))
-                buf[t] = torch.cat([obs, obs2, action,
-                                    torch.stack([rew, done_after, keep, succ])])
-                state, obs, done_before = state2, obs2, done_after
+                pstate, state, obs, done_before, buf[t] = step(pstate, state, obs, done_before,
+                                                               model_params)
             host[start:stop] = buf[start:stop].cpu().numpy()
 
         bounds = np.cumsum((0,) + widths)

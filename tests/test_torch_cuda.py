@@ -204,3 +204,72 @@ def test_spatial_kernel_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="not instantiated"):
         sr.rollout_spatial(chain, torch.zeros(8, 2, device=cuda),
                            torch.zeros(8, 2, device=cuda), torch.zeros(8, 2, 2, device=cuda))
+
+
+# -- the compiled step: CUDA graphs against eager dispatch ---------------------
+
+def _icem_steps(env, cuda, steps: int, eager: bool):
+    """``steps`` MpcICem control steps on ``env`` from one seeded start:
+    (actions, means, stds, the kernels' launches, the plan step's graphs)."""
+    import contextlib
+
+    from icem_torch.controllers.icem import MpcICem
+    from icem_torch.models.ground_truth import GroundTruthModel
+    from icem_torch.runtime.graphs import disable_graphs
+
+    ctrl = MpcICem(env=env, forward_model=GroundTruthModel(env=env), horizon=10,
+                   num_simulated_trajectories=64, seed=3, device=cuda,
+                   action_sampler_params=dict(elites_size=8, opt_iterations=3))
+    state = env.init_state(torch.Generator(device=cuda).manual_seed(0))
+    obs = env.observation(state)
+    pr.LAUNCHES = sr.LAUNCHES = 0
+    out = []
+    with disable_graphs() if eager else contextlib.nullcontext():
+        ctrl.beginning_of_rollout(observation=obs, state=state)
+        for _ in range(steps):
+            a = ctrl.get_action(obs, state)
+            out.append((a, ctrl._pstate.mean.cpu().numpy(), ctrl._pstate.std.cpu().numpy()))
+            state, obs, _, _ = env.step(state, torch.as_tensor(a, device=cuda))
+    return out, (pr.LAUNCHES, sr.LAUNCHES), ctrl._plan_impl().num_keys
+
+
+@pytest.mark.parametrize("loop", ["unrolled", "scan"])
+def test_compiled_plan_steps_give_the_eager_bits_and_launches(cuda, loop):
+    """MpcICem replays CUDA graphs by default: HalfCheetah through kernel B1
+    (the unrolled loop), Ant3D through B2 (the scanned loop); the same bits
+    and the same launch counts as the same steps run eagerly."""
+    from icem_torch.runtime import graphs
+
+    env = (HalfCheetah(exclude_current_positions_from_observation=True) if loop == "unrolled"
+           else Ant3D(exclude_current_positions_from_observation=False))
+    eager, eager_launches, _ = _icem_steps(env, cuda, 6, eager=True)
+    replays = graphs.REPLAYS
+    graph, graph_launches, keys = _icem_steps(env, cuda, 6, eager=False)
+    assert graphs.REPLAYS - replays == 6 and keys == 2  # have_elites False, then True
+    assert graph_launches == eager_launches and sum(eager_launches) == 4 * 6
+    for (a, m, s), (ga, gm, gs) in zip(eager, graph):
+        np.testing.assert_array_equal(ga, a)
+        np.testing.assert_array_equal(gm, m)
+        np.testing.assert_array_equal(gs, s)
+
+
+def test_a_host_wait_in_a_captured_step_raises(cuda, monkeypatch):
+    """An injected ``.item()`` in the plan step: the capture raises, and
+    nothing runs the step eagerly in its place."""
+    from icem_torch.controllers import icem as ic
+
+    real = ic.top_k_ascending
+    calls = []
+
+    def with_a_host_wait(costs, k):
+        calls.append(float(costs.min()))  # Tensor.item: the host waits for the card
+        return real(costs, k)
+
+    monkeypatch.setattr(ic, "top_k_ascending", with_a_host_wait)
+    env = HalfCheetah(exclude_current_positions_from_observation=True)
+    with pytest.raises(RuntimeError, match="CUDA graph capture of MpcICem.plan_step failed"):
+        _icem_steps(env, cuda, 1, eager=False)
+    # the warm-up's three CEM iterations ran; the capture stopped at the
+    # first host wait, and no eager call followed
+    assert len(calls) == 3
+    assert float(torch.ones(2, device=cuda).sum()) == 2.0  # the card works on

@@ -99,12 +99,14 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     (returns beside success rates), and HalfCheetah with a ``random``
     initial phase (200-step episodes), as in step 11; the host waits of
     every run are printed by source line;
-20. [graph]: the compiled steps (``icem_torch/runtime/graphs.py``). Twelve
+20. [graph]: the compiled steps (``icem_torch/runtime/graphs.py``). Fourteen
     paths (``GRAPH_PATHS``): the main path at bench.py's population 32,768
     (20 plan steps), HalfCheetah i-cem-blitz and cem-std, Ant (the scanned
     loop, B2), HumanoidStandup, the Hopper, the mountain car, Door,
-    FetchReach, the ensemble HalfCheetah, planet cheetah_run (the host loop)
-    and a valve HalfCheetah (its real step on the autodiff engine), each
+    FetchReach, the ensemble HalfCheetah, planet cheetah_run (the host loop),
+    a valve HalfCheetah (its real step on the autodiff engine) and the
+    i-cem-blitz and cem-std planners sharded over the one-rank NCCL group
+    (the gather inside the graph), each
     driven from one seed twice eagerly (``disable_graphs()``) and once from
     CUDA graphs: the graph run's actions, planner means and stds and
     rewards must be the eager run's bits (or within the eager-vs-eager gap,
@@ -131,8 +133,11 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     rank under NCCL in this process: the driver on
     settings/halfcheetah_running/i-cem-blitz.json and cem-std.json with
     controller_params.sharded=true (1,000 steps each, held as in step 11 and
-    19), beside the unsharded runs' ms per control step. Then both kernels
-    against their plain versions at the rows one rank of two launches
+    19), from CUDA graphs and again eagerly from the same seed: the same
+    actions, return and launches, no host wait inside a replay; ms per
+    control step and idle share both ways beside the unsharded runs' (the
+    graphs hold the NCCL gather; the gloo ranks below plan eagerly). Then
+    both kernels against their plain versions at the rows one rank of two launches
     (HalfCheetah P = 22 / 16 / 13, h = 30; Ant P = 66 / 51 / 41, h = 12),
     timed there, and two rank processes of this script
     (``--sharded-rank``) in a gloo group over a FileStore on the one card,
@@ -144,7 +149,7 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
 The MpcICem phases build their controllers from the settings files as the
 driver does (``icem_torch.main.get_controllers``). Every controller, device
 episode and host-loop env step replays CUDA graphs, as a user's run does
-(the sharded planner excepted); steps 4 and 7 call ``plan_step`` directly,
+(a sharded planner over a gloo group excepted); steps 4 and 7 call ``plan_step`` directly,
 eagerly, and [graph] holds the graphs against eager runs.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -1666,23 +1671,59 @@ DRIVER_RUNS = (
 )
 
 
+_HOST_WAIT_DEPTH = 0  # host_waits blocks open
+
+
 @contextlib.contextmanager
 def host_waits():
     """Counts the operations that make the host wait for the card, by
     torch.cuda.set_sync_debug_mode("warn"): each one warns. Yields a list
-    that receives the count and the count per source line."""
+    that receives the count and the count per source line. Nests: an inner
+    count's warnings reach the outer one too, and no further."""
+    global _HOST_WAIT_DEPTH
     counted = []
+    before = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("warn")
+    _HOST_WAIT_DEPTH += 1
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             yield counted
     finally:
-        torch.cuda.set_sync_debug_mode("default")
+        _HOST_WAIT_DEPTH -= 1
+        torch.cuda.set_sync_debug_mode(before)
     waits = [w for w in caught if "synchroniz" in str(w.message)]
+    if _HOST_WAIT_DEPTH:  # an outer count records them
+        for w in waits:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
     counted.append(len(waits))
     counted.append(collections.Counter(
         f"{os.path.relpath(w.filename)}:{w.lineno}" for w in waits))
+
+
+@contextlib.contextmanager
+def replay_waits():
+    """Counts the host waits inside each replayed step (``host_waits``
+    around every ``Compiled._run`` of a captured graph; the CPU plumbing
+    never runs here). Yields the list that receives one count a replay."""
+    from icem_torch.runtime import graphs
+
+    counts = []
+    real_run = graphs.Compiled._run
+
+    def counted_run(self, entry, tensors, generators):
+        if entry.graph is None:
+            return real_run(self, entry, tensors, generators)
+        with host_waits() as w:
+            out = real_run(self, entry, tensors, generators)
+        counts.append(w[0])
+        return out
+
+    graphs.Compiled._run = counted_run
+    try:
+        yield counts
+    finally:
+        graphs.Compiled._run = real_run
 
 
 def phase_driver_times(device, planar_shapes, spatial_cases):
@@ -1715,14 +1756,15 @@ def phase_driver_times(device, planar_shapes, spatial_cases):
             f"launch; {bound(env.model, P, h, spatial_ops[env.name])}")
 
 
-def drive_settings(device, workdir: str, tag: str, run) -> tuple:
+def drive_settings(device, workdir: str, tag: str, run) -> dict:
     """``icem_torch.main.run`` on one entry of DRIVER_RUNS under a temporary
     model_dir: the kernel launches of the run (counts set to 0 just before
     it, read just after), its return, ms per control step and env steps/s
     (from the run's own train_exec_time, which times the episodes), the host
     waits for the card it made, and the device idle share over a short
-    episode of the same settings. Returns (launches per kernel, ms per
-    control step)."""
+    episode of the same settings. Returns the launches per kernel, ms per
+    control step, the last iteration's return, every episode's actions and
+    the idle share (None where the profiler saw no device time)."""
     import pickle
 
     from icem_torch import main as tmain
@@ -1787,8 +1829,9 @@ def drive_settings(device, workdir: str, tag: str, run) -> tuple:
     rm = RolloutManager(env, {**params.rollout_params, "task_horizon": idle_steps},
                         device=device)
     rm.sample(ctrl)  # first launches of this env's model: binding, caches
-    profile_window(lambda: rm.sample(ctrl), idle_steps, f"driver {tag}")
-    return launches, ms_step
+    idle = profile_window(lambda: rm.sample(ctrl), idle_steps, f"driver {tag}")
+    return dict(launches=launches, ms=ms_step, ret=ret, idle=idle,
+                actions=np.concatenate([r["actions"] for r in episodes]))
 
 
 def phase_driver(device, workdir: str):
@@ -1802,10 +1845,10 @@ def phase_driver(device, workdir: str):
     totals = {"planar": 0, "spatial": 0}
     ms = {}
     for i, run in enumerate(DRIVER_RUNS):
-        launches, ms[run[:2]] = drive_settings(device, workdir, f"{i}_{run[0].split('/')[0]}",
-                                               run)
+        got = drive_settings(device, workdir, f"{i}_{run[0].split('/')[0]}", run)
+        ms[run[:2]] = got["ms"]
         for k in totals:
-            totals[k] += launches[k]
+            totals[k] += got["launches"][k]
     return totals, ms
 
 
@@ -1878,6 +1921,12 @@ GRAPH_PATHS = (
     # the real step on the autodiff engine (the energy valve), the planner
     # on B1
     ("valve", "halfcheetah_running/i-cem-blitz", (), 5, 1, "device"),
+    # the sharded planners over the one-rank NCCL group: the gather inside
+    # the graph, the rank streams seeded on the host
+    ("sharded i-cem-blitz", "halfcheetah_running/i-cem-blitz",
+     ("controller_params.sharded=true",), 20, 10, "device"),
+    ("sharded cem-std", "halfcheetah_running/cem-std", ("controller_params.sharded=true",), 20,
+     10, "device"),
 )
 
 
@@ -1991,20 +2040,7 @@ def phase_graph(device):
     counters = {"planar": planar_rollout, "spatial": spatial_rollout}
     totals = {k: 0 for k in counters}
     t_phase = time.perf_counter()
-    waits_in_replays = []
-    real_run = graphs.Compiled._run
-
-    def counted_run(self, entry, tensors, generators):
-        # host waits inside a replayed step (the CPU plumbing never runs here)
-        if entry.graph is None:
-            return real_run(self, entry, tensors, generators)
-        with host_waits() as w:
-            out = real_run(self, entry, tensors, generators)
-        waits_in_replays.append(w[0])
-        return out
-
-    graphs.Compiled._run = counted_run
-    try:
+    with replay_waits() as waits_in_replays:
         for tag, name, overrides, steps, idle_steps, loop in GRAPH_PATHS:
             t_path = time.perf_counter()
             runs = {}
@@ -2058,8 +2094,6 @@ def phase_graph(device):
             for k in totals:
                 totals[k] += graph["launches"][k]
             log(f"[wall] {time.perf_counter() - t_path:.1f} s: the graph phase's {tag} path")
-    finally:
-        graphs.Compiled._run = real_run
     log(f"[wall] {time.perf_counter() - t_phase:.1f} s: the graph phase")
     return totals
 
@@ -2352,9 +2386,12 @@ SHARDED_SETTINGS = ("halfcheetah_running/i-cem-blitz", "ant/i-cem-blitz")
 SHARDED_STEPS = 2
 SHARDED_TIMEOUT = 240  # seconds the two rank processes may take, start-up included
 # one rank under NCCL in this process, through the driver: DRIVER_RUNS'
-# entries of the two HalfCheetah planners as shipped, with sharded=true
+# entries of the two HalfCheetah planners as shipped, with sharded=true,
+# each from graphs and eagerly; their idle windows 10 steps (DRIVER_RUNS: 20)
+SHARDED_IDLE_STEPS = 10
 SHARDED_DRIVER_RUNS = tuple(
-    (name, ("controller_params.sharded=true",), *rest) for name, overrides, *rest in DRIVER_RUNS
+    (name, ("controller_params.sharded=true",), *rest[:-1], SHARDED_IDLE_STEPS)
+    for name, overrides, *rest in DRIVER_RUNS
     if name in ("halfcheetah_running/i-cem-blitz", "halfcheetah_running/cem-std")
     and not overrides)
 
@@ -2486,7 +2523,10 @@ def phase_sharded(device, workdir: str, driver_ms: dict):
     1. One rank under NCCL, in this process: ``icem_torch.main.run`` on the
        HalfCheetah i-cem-blitz and cem-std settings with sharded=true (a
        one-rank group rendezvoused in memory), each as its DRIVER_RUNS entry
-       is run and held, beside the unsharded run's ms per control step.
+       is run and held, from CUDA graphs (the NCCL gather inside) and then
+       eagerly (``disable_graphs()``) from the same seed: the same actions,
+       return and launches both ways, no host wait inside a replay; ms per
+       control step and idle share both ways beside the unsharded run's.
     2. Two ranks on the card, two processes in a gloo group over a FileStore
        (NCCL refuses two ranks on one card): ``MpcICem`` from
        SHARDED_SETTINGS, HalfCheetah (B1) and Ant (B2, the unrolled loop),
@@ -2503,17 +2543,39 @@ def phase_sharded(device, workdir: str, driver_ms: dict):
     from icem_torch.controllers import icem as ic
     from icem_torch.ops import planar_rollout, spatial_rollout
     from icem_torch.parallel.plan import close_local_groups, init_rank_stream
+    from icem_torch.runtime import graphs
 
     t_phase = time.perf_counter()
     totals = {"planar": 0, "spatial": 0}
     for i, run in enumerate(SHARDED_DRIVER_RUNS):
-        launches, ms = drive_settings(device, workdir, f"sharded_{i}", run)
+        before = graphs.CAPTURES, graphs.REPLAYS
+        with replay_waits() as waits:
+            graph = drive_settings(device, workdir, f"sharded_{i}_graph", run)
+        captures, replays = graphs.CAPTURES - before[0], graphs.REPLAYS - before[1]
+        with graphs.disable_graphs():
+            eager = drive_settings(device, workdir, f"sharded_{i}_eager", run)
         for k in totals:
-            totals[k] += launches[k]
+            totals[k] += graph["launches"][k]
         plain = driver_ms[(run[0], ())]
-        log(f"[sharded] one rank, NCCL: settings/{run[0]}.json sharded=true {ms:.3f} ms per "
-            f"control step against {plain:.3f} unsharded ({ms / plain:.3f}x); launches "
-            f"{launches}")
+        idle = {m: "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
+                for m, r in (("graph", graph), ("eager", eager))}
+        log(f"[sharded] one rank, NCCL: settings/{run[0]}.json sharded=true, ms per control "
+            f"step: graph {graph['ms']:.3f}, eager {eager['ms']:.3f} "
+            f"({eager['ms'] / graph['ms']:.3f}x), unsharded graph {plain:.3f} (graph "
+            f"{graph['ms'] / plain:.3f}x of it, eager {eager['ms'] / plain:.3f}x); idle share "
+            f"graph {idle['graph']}, eager {idle['eager']}; {captures} captures, {replays} "
+            f"replays, host waits inside replays {sum(waits)}; launches graph "
+            f"{graph['launches']}, eager {eager['launches']}; return {graph['ret']:.2f} both "
+            f"ways: {graph['ret'] == eager['ret']}")
+        check(captures > 0 and replays >= run[3] and len(waits) == replays,
+              f"[sharded] {run[0]}: {captures} captures, {replays} replays")
+        check(sum(waits) == 0, f"[sharded] {run[0]}: {sum(waits)} host waits inside replays")
+        check(graph["launches"] == eager["launches"],
+              f"[sharded] {run[0]}: launches {graph['launches']} against eager "
+              f"{eager['launches']}")
+        check(graph["ret"] == eager["ret"] and np.array_equal(graph["actions"], eager["actions"]),
+              f"[sharded] {run[0]}: the graph run's return {graph['ret']} or actions differ "
+              f"from the eager run's ({eager['ret']})")
     close_local_groups()
 
     # the rows each rank launches, and both kernels at them

@@ -28,7 +28,8 @@ import torch
 
 from icem_torch.controllers.icem import (action_bounds, best_candidate, top_k_ascending,
                                         validate_sampler_params)
-from icem_torch.controllers.mpc_common import ModelConsistencyMixin, PlannerCheckpointMixin
+from icem_torch.controllers.mpc_common import (ModelConsistencyMixin, PlannerCheckpointMixin,
+                                              ShardedPlannerMixin)
 from icem_torch.device import indexed, resolve_device
 from icem_torch.models.base import rollout_open_loop, trajectory_cost
 from icem_torch.runtime.graphs import Compiled
@@ -185,7 +186,7 @@ _CEM_STD_SAMPLER_KEYS = ("alpha", "elites_size", "opt_iterations", "init_std",
                          "execute_best_elite", "shift_means", "bounds_like_levine")
 
 
-class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
+class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin, ShardedPlannerMixin):
     """Controller with the reference API around ``plan_step`` and its state
     (``verbose`` and ``sharded`` as in ``MpcICem``)."""
 
@@ -221,8 +222,7 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
         from icem_torch.parallel.plan import resolve_group
         self._group = resolve_group(sharded, getattr(forward_model, "num_parallel", 0) or 0,
                                     self.device)
-        if self._group is not None:
-            print("MpcCemStd: the sharded planner plans eagerly (no CUDA graph)")
+        self._announce_group()
         self._compiled_plan = None
         self.verbose = bool(verbose)
         self._seed = seed
@@ -235,28 +235,26 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
     def model_evals_per_timestep(self):
         return self.cfg.model_evals_per_timestep
 
-    @property
-    def plans_eagerly(self) -> bool:
-        """True for the sharded planner, which no CUDA graph captures: the
-        device episode then runs its control steps eagerly too."""
-        return self._group is not None
-
     def _as_tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _plan_impl(self):
         """(pstate, obs, model_state, model_params) -> CemPlanResult:
         ``plan_step`` as a compiled step (``runtime/graphs.py``), or
-        ``cem_plan_step_sharded`` over the controller's group, eagerly."""
-        if self._group is None:
-            if self._compiled_plan is None:
+        ``cem_plan_step_sharded`` over the controller's group (see
+        MpcICem._plan_impl)."""
+        if self._compiled_plan is None:
+            if self._group is None:
                 self._compiled_plan = Compiled(
                     partial(plan_step, self.cfg, self._planner_fn(), self.env.cost_fn),
                     in_place=(3,), reads=self.forward_model.graph_reads, name="MpcCemStd.plan_step")
-            return self._compiled_plan
-        from icem_torch.parallel.plan import cem_plan_step_sharded
-        return partial(cem_plan_step_sharded, self.cfg, self._planner_fn(), self.env.cost_fn,
-                       self._group)
+            else:
+                from icem_torch.parallel.plan import ShardedPlan, cem_plan_step_sharded
+                self._compiled_plan = ShardedPlan(
+                    cem_plan_step_sharded, self.cfg, self._planner_fn(), self.env.cost_fn,
+                    self._group, self.device, compiled=not self.plans_eagerly,
+                    reads=self.forward_model.graph_reads, name="MpcCemStd.plan_step_sharded")
+        return self._compiled_plan
 
     def beginning_of_rollout(self, *, observation, state=None, mode="train"):
         gen = Seeding.controller_generator(self._seed, "controller/cem-std", self.device)
@@ -294,18 +292,6 @@ class MpcCemStd(ModelConsistencyMixin, PlannerCheckpointMixin):
             return pstate
         from icem_torch.parallel.plan import init_rank_stream
         return pstate._replace(rank_stream=init_rank_stream(generator))
-
-    def functional_plan(self):
-        """(pstate, obs, env_state, model_params=None) -> (action, pstate'),
-        on device tensors (see MpcICem)."""
-        plan_impl = self._plan_impl()
-        init_model_state = self.forward_model.init_model_state
-
-        def plan(pstate, obs, env_state, model_params=None):
-            res = plan_impl(pstate, obs, init_model_state(obs, env_state), model_params)
-            return res.action, res.state
-
-        return plan
 
     def train(self, buffer):
         return {}

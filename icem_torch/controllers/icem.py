@@ -33,7 +33,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from icem_torch.controllers.mpc_common import ModelConsistencyMixin, PlannerCheckpointMixin
+from icem_torch.controllers.mpc_common import (ModelConsistencyMixin, PlannerCheckpointMixin,
+                                              ShardedPlannerMixin)
 from icem_torch.device import indexed, on_device, resolve_device
 from icem_torch.models.base import batch_tree, rollout_open_loop, trajectory_cost, unbatch_tree
 from icem_torch.ops.colored_noise import sample_colored_action_noise
@@ -411,7 +412,7 @@ _ICEM_SAMPLER_KEYS = (
 )
 
 
-class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
+class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin, ShardedPlannerMixin):
     """Controller with the reference API (beginning_of_rollout / get_action)
     around ``plan_step`` and its state.
 
@@ -462,8 +463,7 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
         if self._group is not None and self.cfg.cem_loop == "scan":
             print("MpcICem: cem_loop='scan' is single-device only; the sharded planner runs "
                   "its unrolled loop")
-        if self._group is not None:
-            print("MpcICem: the sharded planner plans eagerly (no CUDA graph)")
+        self._announce_group()
         self._compiled_plan = None
         self.verbose = bool(verbose)
         self.do_visualize_plan = do_visualize_plan
@@ -477,12 +477,6 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
     def model_evals_per_timestep(self):
         return self.cfg.model_evals_per_timestep
 
-    @property
-    def plans_eagerly(self) -> bool:
-        """True for the sharded planner, which no CUDA graph captures: the
-        device episode then runs its control steps eagerly too."""
-        return self._group is not None
-
     def _as_tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
@@ -490,16 +484,20 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
         """(pstate, obs, model_state, model_params) -> PlanResult: ``plan_step``
         as a compiled step (``runtime/graphs.py``; one graph per shape and
         ``have_elites``), or ``plan_step_sharded`` over the controller's
-        group, eagerly."""
-        if self._group is None:
-            if self._compiled_plan is None:
+        group, compiled the same way but for a gloo group on the card
+        (``parallel/plan.py::ShardedPlan``)."""
+        if self._compiled_plan is None:
+            if self._group is None:
                 self._compiled_plan = Compiled(
                     partial(plan_step, self.cfg, self._planner_fn(), self.env.cost_fn),
                     in_place=(3,), reads=self.forward_model.graph_reads, name="MpcICem.plan_step")
-            return self._compiled_plan
-        from icem_torch.parallel.plan import plan_step_sharded
-        return partial(plan_step_sharded, self.cfg, self._planner_fn(), self.env.cost_fn,
-                       self._group)
+            else:
+                from icem_torch.parallel.plan import ShardedPlan, plan_step_sharded
+                self._compiled_plan = ShardedPlan(
+                    plan_step_sharded, self.cfg, self._planner_fn(), self.env.cost_fn,
+                    self._group, self.device, compiled=not self.plans_eagerly,
+                    reads=self.forward_model.graph_reads, name="MpcICem.plan_step_sharded")
+        return self._compiled_plan
 
     def beginning_of_rollout(self, *, observation, state=None, mode="train"):
         gen = Seeding.controller_generator(self._seed, "controller/icem", self.device)
@@ -605,22 +603,6 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin):
             return pstate
         from icem_torch.parallel.plan import init_rank_stream
         return pstate._replace(rank_stream=init_rank_stream(generator))
-
-    def functional_plan(self):
-        """(pstate, obs, env_state, model_params=None) -> (action, pstate'),
-        on device tensors and with no host round trip but the sharded
-        planner's gather. A learned model's weights enter as ``model_params``
-        (``live_model_params``); the model state is synced from the
-        observation at every step, as in the JAX package. A sharded
-        controller plans sharded episodes."""
-        plan_impl = self._plan_impl()
-        init_model_state = self.forward_model.init_model_state
-
-        def plan(pstate, obs, env_state, model_params=None):
-            res = plan_impl(pstate, obs, init_model_state(obs, env_state), model_params)
-            return res.action, res.state
-
-        return plan
 
     def train(self, buffer):
         return {}

@@ -4,7 +4,7 @@ Counterpart of ``icem_tpu/controllers/mpc_common.py``: every model-based MPC
 controller (iCEM, vanilla CEM, random shooting) can check that its
 ground-truth forward model's state still agrees with the live env state
 (``verbose``), advances a stateful model by each executed action, and the
-CEM planners share their checkpoint format.
+CEM planners share their checkpoint format and their sharded planning.
 """
 
 from __future__ import annotations
@@ -69,6 +69,48 @@ class ModelConsistencyMixin:
         """The model advance after an executed action (see the class)."""
         if self.verbose or self.forward_model.stateful:
             self._advance_model(obs, action)
+
+
+class ShardedPlannerMixin:
+    """What the CEM planners share for ``sharded``: a planner with a
+    process group ``_group`` plans through ``_plan_impl()``, a
+    ``parallel/plan.py::ShardedPlan``; every other one through a compiled
+    ``plan_step``. Needs ``_group``, ``device``, ``forward_model`` and
+    ``_plan_impl``."""
+
+    @property
+    def plans_eagerly(self) -> bool:
+        """True for a sharded planner over a gloo group on the card: its
+        gather goes through the host, which no CUDA graph captures, so its
+        plan steps and the device episode's control steps run eagerly."""
+        return (self._group is not None and self._group.backend == "gloo"
+                and self.device.type == "cuda")
+
+    @property
+    def sharded_plan(self):
+        """The ShardedPlan of a planner with a group, else None."""
+        return None if self._group is None else self._plan_impl()
+
+    def _announce_group(self):
+        if self.plans_eagerly:
+            print(f"{type(self).__name__}: a gloo group on the card plans eagerly (its gather "
+                  f"goes through the host; no CUDA graph)")
+
+    def functional_plan(self):
+        """(pstate, obs, env_state, model_params=None) -> (action, pstate'),
+        on device tensors and with no host round trip but a gloo group's
+        gather. A learned model's weights enter as ``model_params``
+        (``live_model_params``); the model state is synced from the
+        observation at every step, as in the JAX package. A sharded
+        controller plans sharded episodes."""
+        plan_impl = self._plan_impl()
+        init_model_state = self.forward_model.init_model_state
+
+        def plan(pstate, obs, env_state, model_params=None):
+            res = plan_impl(pstate, obs, init_model_state(obs, env_state), model_params)
+            return res.action, res.state
+
+        return plan
 
 
 class PlannerCheckpointMixin:

@@ -21,6 +21,13 @@ for a mesh axis):
 
 Fresh-sample counts are rounded UP to a multiple of the group size, so the
 sharded planner samples at least as many trajectories as the schedule.
+
+The controllers call a plan step through ``ShardedPlan``: the rank streams
+are seeded on the host before each call and passed in as generators, and
+the step itself is a compiled step (``runtime/graphs.py``), on the card a
+CUDA graph with the NCCL gather inside, as ``jax.jit`` compiles the JAX
+package's. A gloo group on the card plans eagerly: its gather goes through
+the host.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from icem_torch.controllers.icem import (ICemConfig, ICemState, PlanResult, _ref
                                         top_k_ascending)
 from icem_torch.device import indexed, resolve_device
 from icem_torch.models.base import rollout_open_loop, trajectory_cost
+from icem_torch.runtime.graphs import Compiled
 
 # how long a rank of a local group waits in a collective
 _LOCAL_TIMEOUT = datetime.timedelta(minutes=5)
@@ -81,6 +89,27 @@ def rank_generator(stream: RankStream, rank: int, iteration: int, device) -> tor
     gen = torch.Generator(device=device)
     gen.manual_seed((int(state[0]) << 31) ^ int(state[1]))
     return gen
+
+
+def rank_generators(stream: RankStream, rank: int, n_iterations: int, device) -> tuple:
+    """The host prologue of a sharded plan step: ``rank_generator`` for every
+    CEM iteration of the plan step ``stream.step``. Seeding sets host
+    integers only, so the host waits for nothing."""
+    return tuple(rank_generator(stream, rank, i, device) for i in range(n_iterations))
+
+
+def _stream_generators(stream, rank: int, n_iterations: int, device) -> tuple:
+    """This rank's generator for each CEM iteration: ``stream`` itself where
+    the caller seeded them (``ShardedPlan``), else seeded here from it."""
+    if isinstance(stream, RankStream):
+        return rank_generators(stream, rank, n_iterations, device)
+    return stream
+
+
+def _advanced(stream):
+    """The stream of the next plan step; a caller's generators are handed
+    back as they are, for the caller to advance (``ShardedPlan.join``)."""
+    return stream._replace(step=stream.step + 1) if isinstance(stream, RankStream) else stream
 
 
 # one-rank groups made without a process group, one per backend and device
@@ -197,9 +226,13 @@ def plan_step_sharded(cfg: ICemConfig, predict_fn, cost_fn, group: PopGroup,
 
     The algorithm of ``controllers.icem.plan_step`` (the unrolled loop,
     whatever ``cfg.cem_loop`` says); only the population's layout differs.
-    ``pstate.rank_stream`` holds the rank streams (``init_rank_stream``);
-    ``model_params`` as in ``plan_step``, replicated. Returns a PlanResult,
-    the same contract as ``plan_step``.
+    ``pstate.rank_stream`` holds the rank streams (``init_rank_stream``), or
+    this rank's generator for each CEM iteration seeded from them
+    (``rank_generators``; ``ShardedPlan`` hands them in so that no step
+    count reaches a compiled step's key); ``model_params`` as in
+    ``plan_step``, replicated. Returns a PlanResult, the same contract as
+    ``plan_step``, its state's stream one step on (generators come back as
+    they came in).
     """
     if model_params is not None:
         predict_fn = partial(predict_fn, model_params)
@@ -214,6 +247,7 @@ def plan_step_sharded(cfg: ICemConfig, predict_fn, cost_fn, group: PopGroup,
     elite_last_obs = pstate.elite_last_obs
     stream = pstate.rank_stream
     device = mean.device
+    rank_gens = _stream_generators(stream, rank, cfg.opt_iterations, device)
 
     # shifted elites at i == 0 are sharded like the fresh samples: each rank
     # simulates its e_local-row slice in its own batch, padding rows invalid
@@ -231,8 +265,7 @@ def plan_step_sharded(cfg: ICemConfig, predict_fn, cost_fn, group: PopGroup,
             shifted = torch.cat([shifted, torch.zeros((e_local * W - E, h, d), device=device)])
             valid_all = (torch.arange(e_local * W, device=device) < E) & have_elites
 
-        sim = sample_action_sequences(cfg, rank_generator(stream, rank, i, device), mean, std,
-                                      n_local)
+        sim = sample_action_sequences(cfg, rank_gens[i], mean, std, n_local)
         if cfg.use_mean_actions and i == last_iter and rank == 0:
             sim[0] = mean  # the mean as a candidate, on rank 0 only
         valid = torch.ones(n_local, dtype=torch.bool, device=device)
@@ -266,7 +299,7 @@ def plan_step_sharded(cfg: ICemConfig, predict_fn, cost_fn, group: PopGroup,
     new_state = ICemState(mean=mean, std=std, elite_actions=elite_actions,
                           elite_costs=elite_costs, elite_last_obs=elite_last_obs,
                           have_elites=have_elites, generator=gen,
-                          rank_stream=stream._replace(step=stream.step + 1))
+                          rank_stream=_advanced(stream))
     return PlanResult(action=executed, state=new_state, expected_cost=best_cost,
                       best_actions=best_action_seq, best_last_obs=best_last_obs)
 
@@ -279,7 +312,8 @@ def cem_plan_step_sharded(cfg, predict_fn, cost_fn, group: PopGroup, pstate, obs
     The layout of ``plan_step_sharded``: every rank draws and simulates its
     own truncated-normal shard, selects a local top-k, and one gather feeds
     the replicated refit. k_local = min(num_elites, shard) per rank, so the
-    elites and the executed best action are exact. Returns a CemPlanResult.
+    elites and the executed best action are exact. ``pstate.rank_stream``
+    as in ``plan_step_sharded``. Returns a CemPlanResult.
     """
     from icem_torch.controllers.cem_std import (CemPlanResult, CemStdState, _bounds,
                                                _init_std, truncated_normal, truncated_uniform)
@@ -292,12 +326,13 @@ def cem_plan_step_sharded(cfg, predict_fn, cost_fn, group: PopGroup, pstate, obs
     mean, std, stream = pstate.mean, pstate.std, pstate.rank_stream
     low, high = cfg.bounds(mean.device)
     n_local = _cdiv(cfg.num_simulated_trajectories, W)
+    rank_gens = _stream_generators(stream, rank, cfg.opt_iterations, mean.device)
     best_actions = best_cost = best_last_obs = None
 
     for i in range(cfg.opt_iterations):
         # the Levine std clamp updates the replicated std, as in plan_step
         lower, upper, std = _bounds(cfg, mean, std, low, high)
-        u = truncated_uniform(rank_generator(stream, rank, i, mean.device), (n_local, h, d))
+        u = truncated_uniform(rank_gens[i], (n_local, h, d))
         actions = truncated_normal(u, lower, upper, mean, std)
         traj = rollout_open_loop(predict_fn, model_state, obs, actions)
         costs = trajectory_cost(cost_fn, traj, cfg.cost_along_trajectory,
@@ -319,7 +354,58 @@ def cem_plan_step_sharded(cfg, predict_fn, cost_fn, group: PopGroup, pstate, obs
         mean = torch.zeros_like(mean)
     std = _init_std(cfg, low, high)
     return CemPlanResult(action=executed,
-                         state=CemStdState(mean, std, pstate.generator,
-                                           stream._replace(step=stream.step + 1)),
+                         state=CemStdState(mean, std, pstate.generator, _advanced(stream)),
                          expected_cost=best_cost, best_actions=best_actions,
                          best_last_obs=best_last_obs)
+
+
+class ShardedPlan:
+    """A sharded plan step as a controller calls it, (pstate, obs,
+    model_state, model_params) -> result, with the rank streams seeded on
+    the host around ``body``.
+
+    ``body`` is ``step_fn`` (``plan_step_sharded`` or
+    ``cem_plan_step_sharded``) over ``group``: a compiled step
+    (``runtime/graphs.py``; ``in_place=(3,)`` for a learned model's weights,
+    ``reads`` as for the unsharded plan step), or, with ``compiled`` False
+    (a gloo group on the card, whose gather goes through the host), the
+    plain function. ``split`` puts this rank's generators, seeded from the
+    state's ``RankStream``, in its place, so no integer that changes from
+    step to step reaches the compiled step's key; ``join`` puts the stream
+    back one step on.
+    """
+
+    def __init__(self, step_fn, cfg, predict_fn, cost_fn, group: PopGroup, device, *,
+                 compiled: bool, reads=None, name: Optional[str] = None):
+        body = partial(step_fn, cfg, predict_fn, cost_fn, group)
+        self.body = Compiled(body, in_place=(3,), reads=reads, name=name) if compiled else body
+        self.rank, self.n_iterations, self.device = group.rank, cfg.opt_iterations, device
+
+    def split(self, pstate):
+        """``pstate`` with this rank's generators for its step as its stream."""
+        return pstate._replace(rank_stream=rank_generators(
+            pstate.rank_stream, self.rank, self.n_iterations, self.device))
+
+    @staticmethod
+    def join(state, stream: RankStream):
+        """``state`` with ``stream`` one step on."""
+        return state._replace(rank_stream=stream._replace(step=stream.step + 1))
+
+    def __call__(self, pstate, obs, model_state, model_params=None):
+        if not isinstance(pstate.rank_stream, RankStream):
+            # split already, by ``around``: inside the device episode's step
+            return self.body(pstate, obs, model_state, model_params)
+        res = self.body(self.split(pstate), obs, model_state, model_params)
+        return res._replace(state=self.join(res.state, pstate.rank_stream))
+
+    def around(self, step):
+        """``step``, (pstate, *args) -> (pstate', *rest) with a split
+        ``pstate``, as the same over a whole ``pstate``: the device episode's
+        control step. ``.step`` is ``step``."""
+
+        def stepped(pstate, *args):
+            new, *rest = step(self.split(pstate), *args)
+            return (self.join(new, pstate.rank_stream), *rest)
+
+        stepped.step = step
+        return stepped

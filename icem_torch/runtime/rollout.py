@@ -201,7 +201,9 @@ class RolloutManager:
         """The compiled control step of ``policy``'s device episodes,
         (pstate, state, obs, done_before, model_params) -> (pstate', state',
         obs', done_after, row), made once per policy and kept: its graphs
-        serve every later episode."""
+        serve every later episode. A sharded policy's rank streams are
+        seeded on the host around it (``ShardedPlan.around``): the compiled
+        step gets this rank's generators in the stream's place."""
         held = self._control_steps.get(id(policy))
         if held is not None and held[0] is policy:
             return held[1]
@@ -237,6 +239,9 @@ class RolloutManager:
             step = Compiled(control_step, in_place=(4,),
                             reads=getattr(model, "graph_reads", None),
                             name=f"{type(policy).__name__} control step")
+        sharded = getattr(policy, "sharded_plan", None)
+        if sharded is not None:
+            step = sharded.around(step)
         self._control_steps[id(policy)] = (policy, step)
         return step
 

@@ -273,3 +273,109 @@ def test_a_host_wait_in_a_captured_step_raises(cuda, monkeypatch):
     # first host wait, and no eager call followed
     assert len(calls) == 3
     assert float(torch.ones(2, device=cuda).sum()) == 2.0  # the card works on
+
+
+# -- the sharded planner as a compiled step, over the one-rank NCCL group -----
+
+def _sharded_steps(planner, cuda, steps: int, eager: bool, monkeypatch):
+    """``steps`` HalfCheetah control steps of a sharded controller (B1) over
+    the process's one-rank NCCL group, from one seeded start: (each step's
+    action, mean, std and elites, the kernels' launches, the plan body's
+    keys, the host waits inside replays)."""
+    import contextlib
+    import warnings
+
+    from icem_torch.controllers.cem_std import MpcCemStd
+    from icem_torch.controllers.icem import MpcICem
+    from icem_torch.models.ground_truth import GroundTruthModel
+    from icem_torch.runtime import graphs
+
+    waits = []
+    real_run = graphs.Compiled._run
+
+    def counted_run(self, entry, tensors, generators):
+        if entry.graph is None:
+            return real_run(self, entry, tensors, generators)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = real_run(self, entry, tensors, generators)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits.append(sum("synchroniz" in str(w.message) for w in caught))
+        return out
+
+    monkeypatch.setattr(graphs.Compiled, "_run", counted_run)
+    env = HalfCheetah(exclude_current_positions_from_observation=True)
+    cls = MpcICem if planner == "icem" else MpcCemStd
+    ctrl = cls(env=env, forward_model=GroundTruthModel(env=env), horizon=10,
+               num_simulated_trajectories=64, seed=3, device=cuda, sharded=True,
+               action_sampler_params=dict(elites_size=8, opt_iterations=3))
+    assert ctrl._group.backend == "nccl" and not ctrl.plans_eagerly
+    state = env.init_state(torch.Generator(device=cuda).manual_seed(0))
+    obs = env.observation(state)
+    pr.LAUNCHES = sr.LAUNCHES = 0
+    out = []
+    with graphs.disable_graphs() if eager else contextlib.nullcontext():
+        ctrl.beginning_of_rollout(observation=obs, state=state)
+        for _ in range(steps):
+            a = ctrl.get_action(obs, state)
+            st = ctrl._pstate
+            out.append([a] + [getattr(st, k).cpu().numpy() for k in
+                              ("mean", "std", "elite_actions", "elite_costs", "elite_last_obs")
+                              if hasattr(st, k)])
+            state, obs, _, _ = env.step(state, torch.as_tensor(a, device=cuda))
+    assert ctrl._pstate.rank_stream.step == steps
+    return out, (pr.LAUNCHES, sr.LAUNCHES), ctrl._plan_impl().body.num_keys, waits
+
+
+@pytest.mark.parametrize("planner", ["icem", "cem"])
+def test_compiled_sharded_plan_steps_give_the_eager_bits(cuda, planner, monkeypatch):
+    """MpcICem and MpcCemStd with sharded=True over the one-rank NCCL group
+    replay CUDA graphs with the gather inside: 5 steps give the eager
+    sharded planner's actions, means, stds and elites to the bit, with as
+    many B1 launches and no host wait inside a replay."""
+    from icem_torch.runtime import graphs
+
+    eager, eager_launches, _, _ = _sharded_steps(planner, cuda, 5, True, monkeypatch)
+    replays = graphs.REPLAYS
+    graph, graph_launches, keys, waits = _sharded_steps(planner, cuda, 5, False, monkeypatch)
+    assert graphs.REPLAYS - replays == 5 and keys == (2 if planner == "icem" else 1)
+    assert waits == [0] * 5
+    assert graph_launches == eager_launches and sum(eager_launches) == 4 * 5
+    for step, (e, g) in enumerate(zip(eager, graph, strict=True)):
+        for x, y in zip(e, g, strict=True):
+            np.testing.assert_array_equal(y, x, err_msg=f"step {step}")
+
+
+def test_compiled_sharded_device_episode_gives_the_eager_bits(cuda):
+    """A sharded MpcICem's device episode over the one-rank NCCL group: the
+    compiled control step (2 keys) gives the eager episode's transitions to
+    the bit."""
+    import contextlib
+
+    from icem_torch.controllers.icem import MpcICem
+    from icem_torch.models.ground_truth import GroundTruthModel
+    from icem_torch.runtime import graphs
+    from icem_torch.runtime.rollout import RolloutManager
+    from icem_torch.runtime.seeding import Seeding
+
+    def episode(eager):
+        Seeding.set_seed(5)
+        env = HalfCheetah(exclude_current_positions_from_observation=True)
+        ctrl = MpcICem(env=env, forward_model=GroundTruthModel(env=env), horizon=10,
+                       num_simulated_trajectories=64, seed=3, device=cuda, sharded=True,
+                       action_sampler_params=dict(elites_size=8, opt_iterations=3))
+        rm = RolloutManager(env, dict(task_horizon=6, use_env_states=True), device=cuda)
+        ctx = graphs.disable_graphs() if eager else contextlib.nullcontext()
+        with ctx:
+            (ep,) = rm.sample_on_device(ctrl)
+        return ep, rm._control_step(ctrl).step
+
+    eager, _ = episode(True)
+    graph, step = episode(False)
+    assert isinstance(step, graphs.Compiled) and step.num_keys == 2
+    assert len(graph) == len(eager) == 6
+    for k in eager.field_names:
+        np.testing.assert_array_equal(graph[k], eager[k], err_msg=k)

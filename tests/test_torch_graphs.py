@@ -404,10 +404,31 @@ def test_the_eager_flag_reaches_disable_graphs(monkeypatch):
     assert seen == [False, True]
 
 
-def test_a_sharded_controller_runs_its_episodes_eagerly():
+def test_a_sharded_controller_compiles_its_plan_and_control_steps(capsys):
+    """On the CPU, as over an NCCL group on the card, the sharded plan step
+    and the device episode's control step are compiled steps, and nothing
+    says that the controller plans eagerly."""
     env = env_from_string("ContinuousPendulum")
     ctrl = tic.MpcICem(env=env, forward_model=GroundTruthModel(env=env), sharded=True,
                        device="cpu")
-    assert ctrl.plans_eagerly and not isinstance(ctrl._plan_impl(), graphs.Compiled)
+    assert "plans eagerly" not in capsys.readouterr().out
+    assert not ctrl.plans_eagerly and isinstance(ctrl._plan_impl().body, graphs.Compiled)
     rm = RolloutManager(env, {"task_horizon": 2}, device="cpu")
-    assert not isinstance(rm._control_step(ctrl), graphs.Compiled)
+    assert isinstance(rm._control_step(ctrl).step, graphs.Compiled)
+
+
+def test_a_sharded_controller_runs_its_episodes_eagerly(capsys):
+    """A sharded controller over a gloo group on the card, whose gather goes
+    through the host, plans and runs its device episodes eagerly, and says
+    so. The controller's device is set to the card after it is built on the
+    CPU (nothing runs there: the choice alone is held)."""
+    env = env_from_string("ContinuousPendulum")
+    rm = RolloutManager(env, {"task_horizon": 2}, device="cpu")
+    on_card = tic.MpcICem(env=env, forward_model=GroundTruthModel(env=env), sharded=True,
+                          device="cpu")
+    on_card.device = torch.device("cuda")
+    assert on_card._group.backend == "gloo" and on_card.plans_eagerly
+    on_card._announce_group()
+    assert "MpcICem: a gloo group on the card plans eagerly" in capsys.readouterr().out
+    assert not isinstance(on_card._plan_impl().body, graphs.Compiled)
+    assert not isinstance(rm._control_step(on_card).step, graphs.Compiled)

@@ -19,6 +19,7 @@
   ``"auto"`` default shards at two ranks.
 """
 
+import contextlib
 import datetime
 import json
 import os
@@ -46,6 +47,7 @@ from icem_torch.models.base import rollout_open_loop, trajectory_cost
 from icem_torch.models.ground_truth import GroundTruthModel
 from icem_torch.parallel import multihost
 from icem_torch.parallel import plan as tplan
+from icem_torch.runtime import graphs
 from icem_tpu.envs.classic import ContinuousPendulum as JaxPendulum
 from icem_tpu.envs.classic import PointMass as JaxPointMass
 
@@ -822,6 +824,117 @@ def test_sharded_episode_on_the_device_loop(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the sharded planners as compiled steps (runtime/graphs.py's CPU plumbing:
+# static buffers, the generators handed over, outputs packed; no graph)
+
+def _sharded_controller(planner, env, seed, **kw):
+    cls = MpcICem if planner == "icem" else tcs.MpcCemStd
+    asp = dict(elites_size=4, opt_iterations=3)
+    if planner == "icem":
+        asp.update(noise_beta=0.25, fraction_elites_reused=0.5)
+    return cls(env=env, forward_model=GroundTruthModel(env=env), sharded=True, seed=seed,
+               device="cpu", action_sampler_params=asp, **kw)
+
+
+def _assert_same_results(got, want, what):
+    _assert_same_bits([_record(got)], [_record(want)], what)
+    assert got.state.rank_stream == want.state.rank_stream, what
+    assert torch.equal(got.state.generator.get_state(), want.state.generator.get_state()), what
+
+
+@pytest.mark.parametrize("planner", ["icem", "cem"])
+def test_compiled_sharded_plan_steps_give_the_direct_bits(planner):
+    """6 HalfCheetah plan steps at one gloo rank through the controller's
+    ShardedPlan (rank streams seeded on the host, the body a compiled step)
+    against the sharded step called directly with the stream in the state:
+    the same bits every step, the streams advanced alike. The compiled body
+    has one key per value of ``have_elites`` (2 for iCEM; vanilla CEM has
+    no such flag: 1), none per step."""
+    env = env_from_string(CHEETAH[0], **CHEETAH[1])
+    ctrl = _sharded_controller(planner, env, 5, horizon=3, num_simulated_trajectories=20)
+    plan = ctrl._plan_impl()
+    assert isinstance(plan, tplan.ShardedPlan) and isinstance(plan.body, graphs.Compiled)
+    direct = tplan.plan_step_sharded if planner == "icem" else tplan.cem_plan_step_sharded
+    predict = ctrl.forward_model.predict_fn
+    via = ctrl.init_plan_state(env.obs_dim, torch.Generator().manual_seed(9))
+    ps = ctrl.init_plan_state(env.obs_dim, torch.Generator().manual_seed(9))
+    s = env.init_state(torch.Generator().manual_seed(0))
+    for step in range(6):
+        o = env.observation(s)
+        want = direct(ctrl.cfg, predict, env.cost_fn, ctrl._group, ps, o, s)
+        got = plan(via, o, s, None)
+        _assert_same_results(got, want, f"{planner}, step {step}")
+        assert got.state.rank_stream.step == step + 1
+        via, ps = got.state, want.state
+        s = env.step(s, got.action)[0]
+    assert plan.body.num_keys == (2 if planner == "icem" else 1)
+
+
+def _device_episodes(planner, steps, eager):
+    """A sharded controller's device episode on PointMass through the rollout
+    manager, with graphs (the CPU plumbing) or without; the gathers each
+    made and the control step."""
+    from icem_torch.runtime.rollout import RolloutManager
+    from icem_torch.runtime.seeding import Seeding
+
+    Seeding.set_seed(4)
+    env = PointMass(goal=(0.1, 0.1))
+    ctrl = _sharded_controller(planner, env, 3, horizon=5, num_simulated_trajectories=16)
+    rm = RolloutManager(env, dict(task_horizon=steps, use_env_states=True), device="cpu")
+    calls = []
+    real = tplan.gather_rows
+    tplan.gather_rows = lambda g, p: calls.append(g.size) or real(g, p)
+    try:
+        with graphs.disable_graphs() if eager else contextlib.nullcontext():
+            (episode,) = rm.sample_on_device(ctrl)
+    finally:
+        tplan.gather_rows = real
+    return episode, len(calls), rm._control_step(ctrl)
+
+
+@pytest.mark.parametrize("planner", ["icem", "cem"])
+def test_compiled_sharded_device_episode_gives_the_eager_bits(planner):
+    """6 control steps of a sharded device episode through the compiled
+    control step (the rank stream split off and re-attached on the host)
+    against the same episode with graphs disabled: the same transitions to
+    the bit, one gather per CEM iteration of every step, and the control
+    step's keys are the plan's (2 for iCEM, 1 for CEM), none per step."""
+    eager, eager_gathers, _ = _device_episodes(planner, 6, eager=True)
+    graph, graph_gathers, step = _device_episodes(planner, 6, eager=False)
+    assert isinstance(step.step, graphs.Compiled)
+    assert step.step.num_keys == (2 if planner == "icem" else 1)
+    assert eager_gathers == graph_gathers == 6 * 3
+    assert len(graph) == len(eager) == 6
+    for k in eager.field_names:
+        np.testing.assert_array_equal(graph[k], eager[k], err_msg=k)
+
+
+@pytest.mark.parametrize("planner", ["icem", "cem"])
+def test_a_compiled_sharded_checkpoint_resumes_the_next_action(tmp_path, planner):
+    """Saved after 3 compiled plan steps of an episode: a fresh controller
+    of another seed loads it and its next action, through a compiled step
+    of its own, is the saved controller's to the bit, and the eager
+    planner's."""
+    env = PointMass(goal=(0.1, -0.2))
+    ctrl = _sharded_controller(planner, env, 1, horizon=6, num_simulated_trajectories=20)
+    s = torch.tensor([0.3, 0.2, 0.0, 0.0])
+    ctrl.beginning_of_rollout(observation=s, state=s)
+    for _ in range(3):
+        s = env.step(s, torch.as_tensor(ctrl.get_action(s, s)))[0]
+    ctrl.save(tmp_path / "ctrl")
+    fresh = _sharded_controller(planner, env, 2, horizon=6, num_simulated_trajectories=20)
+    fresh.load(tmp_path / "ctrl")
+    assert fresh._pstate.rank_stream == ctrl._pstate.rank_stream == (1, 3)
+    eager = _sharded_controller(planner, env, 2, horizon=6, num_simulated_trajectories=20)
+    eager.load(tmp_path / "ctrl")
+    with graphs.disable_graphs():
+        want = eager.get_action(s, s)
+    np.testing.assert_array_equal(fresh.get_action(s, s), want)
+    np.testing.assert_array_equal(ctrl.get_action(s, s), want)
+    assert fresh._plan_impl().body.num_keys == 1 and fresh._pstate.rank_stream == (1, 4)
+
+
+# ---------------------------------------------------------------------------
 # the bootstrap and the driver
 
 _BOOT = r"""
@@ -854,6 +967,48 @@ def test_bootstrap_starts_one_process(launch):
                          capture_output=True, text=True, timeout=RANK_TIMEOUT)
     assert "BOOTSTRAP_OK" in out.stdout, f"{out.stdout}\n{out.stderr[-2000:]}"
     assert "multihost: process 0/1 up, gloo on cpu" in out.stdout
+
+
+_SCALING = r"""
+import os, sys
+sys.path.insert(0, os.environ["ICEM_REPO"])
+import torch, torch.distributed as dist
+torch.set_num_threads(1)
+from icem_torch.parallel.multihost import maybe_initialize_distributed
+from icem_torch.tools import sharded_scaling
+assert maybe_initialize_distributed(device="cpu")
+sharded_scaling.SETTINGS = "settings/pendulum/i-cem-blitz.json"  # HalfCheetah is slow here
+mine = sharded_scaling.measure(torch.device("cpu"), episode_steps=4, plan_steps=4, widths=())
+assert dist.get_world_size() == 2 and all(mine["held"].values()), mine["held"]
+assert sorted(mine["driver"]) == sorted(mine["plan"]) == ["eager", "graph"]
+assert mine["plan"]["graph"]["rows_per_rank"] == 20, mine["plan"]
+dist.destroy_process_group()
+print("SCALING_OK", mine["rank"])
+"""
+
+
+def test_sharded_scaling_holds_two_ranks_to_the_bit():
+    """``tools/sharded_scaling.measure`` at two gloo ranks on the CPU, on
+    the pendulum's i-cem-blitz settings as shipped (4 driver steps, 4 plan
+    steps): every rank holds that the ranks agree to the bit and that the
+    compiled steps give the eager bits."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ICEM_")}
+    env.update(ICEM_REPO=REPO, ICEM_MULTIHOST="1", OMP_NUM_THREADS="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE="2")
+    procs = [subprocess.Popen([sys.executable, "-c", _SCALING], env=dict(env, RANK=str(r)),
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"SCALING_OK {r}" in out, out[-3000:]
 
 
 def test_bootstrap_errors(monkeypatch, capsys):

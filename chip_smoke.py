@@ -129,7 +129,17 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     recorded and unrecorded, ms per rendered frame, seconds to write an
     episode's AVI and GIF; then one ``get_action`` with
     do_visualize_plan="record".
-23. [sharded]: the sharded planner (``icem_torch/parallel``), last. One
+23. [quality]: the measurement entry points (``icem_torch/tools``). The
+    quality table's seed processes on the card (``quality_table.run_seed``,
+    a fresh interpreter each, through ``icem_torch.main.run`` from CUDA
+    graphs): settings/pendulum/i-cem-blitz.json seeds 0 and 1,
+    door/i-cem-blitz.json seed 0 with ICEM_QUALITY_TH=50, and pendulum seed
+    0 again. Each must exit 0 with the JAX script's row keys, device "cuda",
+    this card and finite returns, Door's success in [0, 1], and the repeated
+    seed the first run's returns to the bit; the children's launches are
+    printed apart. Then one ``compare_icem_cem`` row (HalfCheetah, budget 32,
+    seed 0, one 100-step episode each planner), printed;
+24. [sharded]: the sharded planner (``icem_torch/parallel``), last. One
     rank under NCCL in this process: the driver on
     settings/halfcheetah_running/i-cem-blitz.json and cem-std.json with
     controller_params.sharded=true (1,000 steps each, held as in step 11 and
@@ -2378,6 +2388,100 @@ def phase_video(device, workdir: str):
 
 
 # ---------------------------------------------------------------------------
+# [quality]: the measurement entry points (icem_torch/tools/quality_table.py,
+# compare_icem_cem.py) on the card
+
+# (config, seed, switches) of each seed process, in order; the last repeats
+# the first in a fresh process
+QUALITY_SEEDS = (("pendulum/i-cem-blitz", 0, {}), ("pendulum/i-cem-blitz", 1, {}),
+                 ("door/i-cem-blitz", 0, {"ICEM_QUALITY_TH": "50"}),
+                 ("pendulum/i-cem-blitz", 0, {}))
+# the keys of a seed's row in scripts/quality_table.py::run_config, beside the
+# config's own (success, solve, truncation)
+QUALITY_ROW_KEYS = {"env", "controller", "forward_model", "device", "task_horizon",
+                    "iterations_run", "final_mean_return", "best_mean_return", "wall_s",
+                    "compile_s", "env_steps_per_s"}
+QUALITY_COMPARE = ("halfcheetah", 32, (0,), 1, 100)  # env, budget, seeds, episodes, steps
+
+
+def phase_quality(device, card: str):
+    """[quality]: the quality table's seed processes on the card, and one
+    row of iCEM against CEM in this process.
+
+    1. ``quality_table.run_seed`` for each of QUALITY_SEEDS: a fresh
+       interpreter that runs the seed through ``icem_torch.main.run`` on the
+       card, from CUDA graphs. Held: the child exits 0; every row has the JAX
+       script's keys (its per-seed row's, and aggregated, the v5e row's in
+       results/QUALITY_r05.json), ``device`` "cuda", this card in ``card``
+       and finite returns; Door's success in [0, 1]; the repeated seed's
+       per-iteration returns the first run's bits (the table assumes a seeded
+       run is reproducible across processes). The children's B1 / B2
+       launches are printed on their own line; they are not this process's.
+    2. ``compare_icem_cem.compare_row`` for QUALITY_COMPARE: printed, not
+       held (one seed). Returns its launches."""
+    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.tools import compare_icem_cem, quality_table
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
+                           "QUALITY_r05.json")) as f:
+        v5e = json.load(f)["configs"]
+    rows, runs = collections.defaultdict(list), []
+    child_launches = {"planar": 0, "spatial": 0}
+    for name, seed, switches in QUALITY_SEEDS:
+        t0 = time.perf_counter()
+        row, run = quality_table.run_seed(name, seed, env={**os.environ, **switches})
+        if run is None:
+            log(f"[quality] {name} seed {seed}: {row['error']}; its stderr ends:\n"
+                + "\n".join(row["stderr_tail"]))
+            fail(f"[quality] {name} seed {seed}: the seed process failed ({row['error']})")
+        for k in child_launches:
+            child_launches[k] += run["launches"][k]
+        log(f"[quality] {name} seed {seed} {switches or ''}: final return "
+            f"{row['final_mean_return']}, best {row['best_mean_return']}, success "
+            f"{row.get('final_mean_success', '-')}, env steps/s {row['env_steps_per_s']}, "
+            f"compile_s {row['compile_s']}, {row['iterations_run']} iterations of "
+            f"{row['task_horizon']} steps; launches {run['launches']}; the process "
+            f"{time.perf_counter() - t0:.1f} s")
+        want = QUALITY_ROW_KEYS | {"card"} | (
+            {"truncated_task_horizon"} if "ICEM_QUALITY_TH" in switches else set())
+        check(want <= set(row), f"[quality] {name}: the row lacks {want - set(row)}")
+        check(row["device"] == "cuda" and row["card"] == card,
+              f"[quality] {name}: device {row['device']}, card {row['card']!r}")
+        check(all(np.isfinite(r) for r in run["train_mean_return"]),
+              f"[quality] {name} seed {seed}: returns {run['train_mean_return']}")
+        if "final_mean_success" in row:
+            check(0.0 <= row["final_mean_success"] <= 1.0,
+                  f"[quality] {name}: success {row['final_mean_success']}")
+        rows[name].append(row)
+        runs.append(run)
+    check("final_mean_success" in rows["door/i-cem-blitz"][0],
+          "[quality] door: the row has no success rate")
+    for name, got in rows.items():
+        agg = quality_table.aggregate(got[:2] if name.startswith("pendulum") else got)
+        missing = set(v5e[name]) - set(agg)
+        check(not missing, f"[quality] {name}: the aggregated row lacks {missing}")
+    first, again = runs[0]["train_mean_return"], runs[-1]["train_mean_return"]
+    check(first == again, f"[quality] pendulum seed 0 in a fresh process: returns {again} "
+                          f"against {first}")
+    log(f"[quality] pendulum seed 0 again in a fresh process: the same per-iteration returns "
+        f"to the bit ({first})")
+    log(f"[quality] the seed processes' launches (not in this process's counts): "
+        f"{child_launches}")
+
+    env_name, budget, seeds, episodes, steps = QUALITY_COMPARE
+    planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+    t0 = time.perf_counter()
+    row = compare_icem_cem.compare_row(env_name, budget, seeds, episodes, steps, device)
+    launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+    log(f"[quality] compare_icem_cem {env_name}, budget {budget}, seeds {list(seeds)}, "
+        f"{episodes} episode of {steps} steps (printed, not held): {json.dumps(row)}; "
+        f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+    log(f"[quality] the phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # [sharded]: the sharded planner (icem_torch/parallel) on the card
 
 SHARDED_RANKS = 2
@@ -2768,6 +2872,10 @@ def main() -> int:
         video = phase_video(device, workdir)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the autodiff engines and the video "
             f"phases, {time.perf_counter() - t_new:.1f} s together")
+        t_new = time.perf_counter()
+        quality = phase_quality(device, card)
+        log(f"[wall] {time.perf_counter() - t_start:.1f} s: the measurement entry points, "
+            f"{time.perf_counter() - t_new:.1f} s")
         # last: the sharded planner; it destroys the groups it made
         sharded, sherr, shserr = phase_sharded(device, workdir, driver_ms)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the sharded planner")
@@ -2779,13 +2887,14 @@ def main() -> int:
         f"included), {graphs.REPLAYS} replays")
     # each path's launches, read just after it ran with the counts at 0
     launches = {k: driver[k] + other[k] + learned[k] + graph[k] + autodiff[k] + video[k]
-                + sharded[k] for k in driver}
+                + quality[k] + sharded[k] for k in driver}
     launches["planar"] += path["launches"]
     launches["spatial"] += spath["launches"]
     log(f"[launches] main paths: planar {path['launches']}, spatial {spath['launches']}; "
         f"the other controllers {other}; the learned-model runs {learned}; the driver runs "
         f"{driver}; the graph runs of the compiled steps {graph}; the valve HalfCheetah "
-        f"{autodiff}; the recorded episodes {video}; the sharded planner {sharded}")
+        f"{autodiff}; the recorded episodes {video}; the compare_icem_cem row {quality}; the "
+        f"sharded planner {sharded}")
 
     a = stimes[ant.name]
     log(json.dumps({"kernels": [{

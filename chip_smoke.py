@@ -137,8 +137,15 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     0 again. Each must exit 0 with the JAX script's row keys, device "cuda",
     this card and finite returns, Door's success in [0, 1], and the repeated
     seed the first run's returns to the bit; the children's launches are
-    printed apart. Then one ``compare_icem_cem`` row (HalfCheetah, budget 32,
-    seed 0, one 100-step episode each planner), printed;
+    printed apart. The first three keep their run directories, and
+    ``row_from_run`` folds them back: the pendulum's two seeds into the
+    aggregated row and Door's into its seed's row, each equal to the quality
+    table's but for provenance (``device``, ``card``, ``source_run``) and
+    ``wall_s`` (the fold sums the iterations' times). Then one
+    ``compare_icem_cem`` row (HalfCheetah, budget 32, seed 0, one 100-step
+    episode each planner), printed, and ``cem_door_sanity``'s flatline check
+    (vanilla CEM on Door, budget 64, seeds 0 and 1, 50 steps) with its
+    assertions held;
 24. [sharded]: the sharded planner (``icem_torch/parallel``), last. One
     rank under NCCL in this process: the driver on
     settings/halfcheetah_running/i-cem-blitz.json and cem-std.json with
@@ -2396,15 +2403,33 @@ def phase_video(device, workdir: str):
 QUALITY_SEEDS = (("pendulum/i-cem-blitz", 0, {}), ("pendulum/i-cem-blitz", 1, {}),
                  ("door/i-cem-blitz", 0, {"ICEM_QUALITY_TH": "50"}),
                  ("pendulum/i-cem-blitz", 0, {}))
+QUALITY_KEPT = 3  # the first seed processes keep their run directories for row_from_run
 # the keys of a seed's row in scripts/quality_table.py::run_config, beside the
 # config's own (success, solve, truncation)
 QUALITY_ROW_KEYS = {"env", "controller", "forward_model", "device", "task_horizon",
                     "iterations_run", "final_mean_return", "best_mean_return", "wall_s",
                     "compile_s", "env_steps_per_s"}
 QUALITY_COMPARE = ("halfcheetah", 32, (0,), 1, 100)  # env, budget, seeds, episodes, steps
+QUALITY_DOOR_SANITY = (64, (0, 1), 50)  # cem_door_sanity: budget, seeds, steps
+# the row keys that say where and how a row was made, and wall_s, which the
+# fold takes as the sum of the iterations' times
+FOLD_SKIPS = ("device", "card", "source_run", "wall_s")
 
 
-def phase_quality(device, card: str):
+def _fold_matches(run_dirs, table_row, what: str):
+    """row_from_run's row of ``run_dirs`` against the quality table's row."""
+    from icem_torch.tools import row_from_run
+
+    folded = row_from_run.fold(run_dirs, "cuda")
+    keys = set(folded) - set(FOLD_SKIPS) - ({"seeds"} if len(run_dirs) == 1 else set())
+    diff = {k: (folded[k], table_row.get(k)) for k in keys if folded[k] != table_row.get(k)}
+    check(not diff, f"[quality] row_from_run {what}: folded against table {diff}")
+    log(f"[quality] row_from_run {what}: {len(run_dirs)} run directories fold into the "
+        f"quality table's row ({len(keys)} keys equal; final return "
+        f"{folded['final_mean_return']}, env steps/s {folded['env_steps_per_s']})")
+
+
+def phase_quality(device, card: str, workdir: str):
     """[quality]: the quality table's seed processes on the card, and one
     row of iCEM against CEM in this process.
 
@@ -2417,20 +2442,31 @@ def phase_quality(device, card: str):
        per-iteration returns the first run's bits (the table assumes a seeded
        run is reproducible across processes). The children's B1 / B2
        launches are printed on their own line; they are not this process's.
-    2. ``compare_icem_cem.compare_row`` for QUALITY_COMPARE: printed, not
-       held (one seed). Returns its launches."""
+    2. ``row_from_run.fold`` of the first QUALITY_KEPT seeds' run
+       directories: the pendulum's two into their aggregated row, Door's
+       into its row; each must equal the table's but for FOLD_SKIPS.
+    3. ``compare_icem_cem.compare_row`` for QUALITY_COMPARE: printed, not
+       held (one seed). Returns its launches.
+    4. ``cem_door_sanity.flatline_check`` for QUALITY_DOOR_SANITY: its
+       assertions held (different live actions, a shut door, the constant
+       cost)."""
     from icem_torch.ops import planar_rollout, spatial_rollout
-    from icem_torch.tools import compare_icem_cem, quality_table
+    from icem_torch.tools import cem_door_sanity, compare_icem_cem, quality_table
 
     t_phase = time.perf_counter()
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
                            "QUALITY_r05.json")) as f:
         v5e = json.load(f)["configs"]
-    rows, runs = collections.defaultdict(list), []
+    rows, runs, run_dirs = collections.defaultdict(list), [], collections.defaultdict(list)
     child_launches = {"planar": 0, "spatial": 0}
-    for name, seed, switches in QUALITY_SEEDS:
+    kept = os.path.join(workdir, "quality_runs")
+    for i, (name, seed, switches) in enumerate(QUALITY_SEEDS):
         t0 = time.perf_counter()
-        row, run = quality_table.run_seed(name, seed, env={**os.environ, **switches})
+        keep = i < QUALITY_KEPT
+        row, run = quality_table.run_seed(name, seed, env={**os.environ, **switches},
+                                          runs=kept if keep else None)
+        if keep:
+            run_dirs[name].append(os.path.join(kept, f"{name.replace('/', '_')}_s{seed}"))
         if run is None:
             log(f"[quality] {name} seed {seed}: {row['error']}; its stderr ends:\n"
                 + "\n".join(row["stderr_tail"]))
@@ -2461,6 +2497,8 @@ def phase_quality(device, card: str):
         agg = quality_table.aggregate(got[:2] if name.startswith("pendulum") else got)
         missing = set(v5e[name]) - set(agg)
         check(not missing, f"[quality] {name}: the aggregated row lacks {missing}")
+        dirs = run_dirs[name]
+        _fold_matches(dirs, agg if len(dirs) > 1 else got[0], name)
     first, again = runs[0]["train_mean_return"], runs[-1]["train_mean_return"]
     check(first == again, f"[quality] pendulum seed 0 in a fresh process: returns {again} "
                           f"against {first}")
@@ -2477,6 +2515,16 @@ def phase_quality(device, card: str):
     log(f"[quality] compare_icem_cem {env_name}, budget {budget}, seeds {list(seeds)}, "
         f"{episodes} episode of {steps} steps (printed, not held): {json.dumps(row)}; "
         f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+
+    budget, seeds, steps = QUALITY_DOOR_SANITY
+    t0 = time.perf_counter()
+    try:
+        block = cem_door_sanity.flatline_check(budget, seeds, steps, device)
+    except AssertionError as e:
+        fail(f"[quality] cem_door_sanity, budget {budget}, seeds {list(seeds)}: {e}")
+    block.pop("notes")
+    log(f"[quality] cem_door_sanity, budget {budget}, seeds {list(seeds)}, {steps} steps: "
+        f"its assertions hold: {json.dumps(block)}; {time.perf_counter() - t0:.1f} s")
     log(f"[quality] the phase {time.perf_counter() - t_phase:.1f} s on {card}")
     return launches
 
@@ -2873,7 +2921,7 @@ def main() -> int:
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the autodiff engines and the video "
             f"phases, {time.perf_counter() - t_new:.1f} s together")
         t_new = time.perf_counter()
-        quality = phase_quality(device, card)
+        quality = phase_quality(device, card, workdir)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the measurement entry points, "
             f"{time.perf_counter() - t_new:.1f} s")
         # last: the sharded planner; it destroys the groups it made

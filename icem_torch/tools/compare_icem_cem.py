@@ -54,33 +54,39 @@ PLANNER = {
 }
 
 
-def run_planner(kind: str, env_name: str, budget: int, episodes: int,
-                task_horizon: int, seed: int = 0, device=None):
-    """``episodes`` episodes of one planner at ``budget`` trajectories a
-    step: (returns, successes), successes None where the env has none."""
+def make_planner(kind: str, env_name: str, env, budget: int, seed: int = 0, device=None):
+    """The planner at ``budget`` trajectories a step: ``MpcICem`` with the
+    env's i-cem-blitz structure, or vanilla CEM (``MpcCemStd``)."""
     from icem_torch.controllers.cem_std import MpcCemStd
     from icem_torch.controllers.icem import MpcICem
     from icem_torch.models.ground_truth import GroundTruthModel
-    from icem_torch.runtime.rollout import RolloutManager
-    from icem_torch.runtime.seeding import Seeding
 
-    Seeding.set_seed(seed)
-    env = make_env(env_name)
     model = GroundTruthModel(env=env)
     spec = PLANNER[env_name]
     if kind == "icem":
-        ctrl = MpcICem(env=env, forward_model=model, horizon=spec["horizon"],
+        return MpcICem(env=env, forward_model=model, horizon=spec["horizon"],
                        num_simulated_trajectories=budget,
                        factor_decrease_num=1.25, seed=seed, device=device,
                        action_sampler_params=dict(
                            noise_beta=spec["noise_beta"],
                            elites_size=max(2, budget // 4)))
-    else:
-        ctrl = MpcCemStd(env=env, forward_model=model, horizon=spec["horizon"],
-                         num_simulated_trajectories=budget, seed=seed, device=device,
-                         action_sampler_params=dict(
-                             opt_iterations=3,
-                             elites_size=max(2, budget // 4)))
+    return MpcCemStd(env=env, forward_model=model, horizon=spec["horizon"],
+                     num_simulated_trajectories=budget, seed=seed, device=device,
+                     action_sampler_params=dict(
+                         opt_iterations=3,
+                         elites_size=max(2, budget // 4)))
+
+
+def run_planner(kind: str, env_name: str, budget: int, episodes: int,
+                task_horizon: int, seed: int = 0, device=None):
+    """``episodes`` episodes of one planner at ``budget`` trajectories a
+    step: (returns, successes), successes None where the env has none."""
+    from icem_torch.runtime.rollout import RolloutManager
+    from icem_torch.runtime.seeding import Seeding
+
+    Seeding.set_seed(seed)
+    env = make_env(env_name)
+    ctrl = make_planner(kind, env_name, env, budget, seed, device)
     man = RolloutManager(env, dict(task_horizon=task_horizon,
                                    use_env_states=True, fuse_on_device=True), device=device)
     rollouts = man.sample(ctrl, mode="train", no_rollouts=episodes)

@@ -1,7 +1,8 @@
 """Per-config control-quality table of the port, the counterpart of
 ``scripts/quality_table.py``.
 
-    python -m icem_torch.tools.quality_table --out table.json [--device cpu] [--eager]
+    python -m icem_torch.tools.quality_table --out table.json [--device cpu] [--eager] \\
+        [--runs DIR]
     CONFIGS=pendulum/i-cem-blitz ICEM_QUALITY_SEEDS=0,1 \\
         python -m icem_torch.tools.quality_table --out table.json
 
@@ -23,6 +24,8 @@ line up key for key with ``results/QUALITY_r05.json``.
 The table goes to ``--out`` after every seed; rows already in that file are
 kept, and a config run again replaces its row. Each seed's ``model_dir`` is
 a temporary directory, removed after the seed: nothing else is written.
+With ``--runs DIR`` it is ``DIR/<config>_s<seed>`` instead, and is kept, so
+``icem_torch/tools/row_from_run.py`` can fold it later.
 
 Departures from the JAX script, each deliberate:
 
@@ -214,29 +217,33 @@ def aggregate(rows):
     return agg
 
 
-def seed_entry(name: str, seed: int, device=None, eager: bool = False):
+def seed_entry(name: str, seed: int, device=None, eager: bool = False, runs=None):
     """The body of one seed's interpreter: run it under a temporary
-    directory and print the row and the run's launches and returns."""
+    directory (or under ``runs``, kept) and print the row and the run's
+    launches and returns."""
     from icem_torch.ops import planar_rollout, spatial_rollout
 
     planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
-    with tempfile.TemporaryDirectory() as out_root:
-        _, row, info = run_config(os.path.join(SETTINGS_DIR, name + ".json"), out_root, seed,
-                                  device=device, eager=eager)
+    path = os.path.join(SETTINGS_DIR, name + ".json")
+    if runs is not None:
+        _, row, info = run_config(path, runs, seed, device=device, eager=eager)
+    else:
+        with tempfile.TemporaryDirectory() as out_root:
+            _, row, info = run_config(path, out_root, seed, device=device, eager=eager)
     run = {"launches": {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES},
            "train_mean_return": [float(r) for r in info["train_mean_return"]]}
     print(ROW_MARK + json.dumps(row), flush=True)
     print(RUN_MARK + json.dumps(run), flush=True)
 
 
-def run_seed(name: str, seed: int, device=None, eager: bool = False, env=None):
+def run_seed(name: str, seed: int, device=None, eager: bool = False, env=None, runs=None):
     """Run one (config, seed) in a fresh interpreter: (row, run).
 
     ``env``: the child's environment (default this process's), which
-    carries the switches. The child gets ``--device`` and ``--eager`` as
-    given; asked for the CPU it sees no card. A child that exits non-zero
-    gives an error row (its exit code and the tail of its stderr) and
-    ``run`` None."""
+    carries the switches. The child gets ``--device``, ``--eager`` and
+    ``--runs`` as given; asked for the CPU it sees no card. A child that
+    exits non-zero gives an error row (its exit code and the tail of its
+    stderr) and ``run`` None."""
     cmd = [sys.executable, "-m", "icem_torch.tools.quality_table", "--seed-entry", name,
            str(seed)]
     child_env = dict(os.environ if env is None else env)
@@ -246,6 +253,8 @@ def run_seed(name: str, seed: int, device=None, eager: bool = False, env=None):
             child_env["CUDA_VISIBLE_DEVICES"] = ""
     if eager:
         cmd.append("--eager")
+    if runs is not None:
+        cmd += ["--runs", str(runs)]
     proc = subprocess.Popen(cmd, cwd=REPO, env=child_env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     try:
@@ -290,11 +299,15 @@ def main(argv=None) -> int:
                     help="'cpu' runs the plain PyTorch versions; default: the CUDA device")
     ap.add_argument("--eager", action="store_true",
                     help="run the steps eagerly instead of replaying CUDA graphs")
+    ap.add_argument("--runs", default=None,
+                    help="keep each seed's model_dir as RUNS/<config>_s<seed> "
+                         "(default: a temporary directory, removed)")
     ap.add_argument("--seed-entry", nargs=2, metavar=("CONFIG", "SEED"),
                     help=argparse.SUPPRESS)  # one seed's interpreter (run_seed)
     args = ap.parse_args(argv)
     if args.seed_entry:
-        seed_entry(args.seed_entry[0], int(args.seed_entry[1]), args.device, args.eager)
+        seed_entry(args.seed_entry[0], int(args.seed_entry[1]), args.device, args.eager,
+                   args.runs)
         return 0
     if not args.out:
         ap.error("--out is required")
@@ -311,7 +324,7 @@ def main(argv=None) -> int:
         rows = []
         for seed in seeds:
             print(f"=== {name} seed {seed}", file=sys.stderr, flush=True)
-            row, run = run_seed(name, seed, args.device, args.eager)
+            row, run = run_seed(name, seed, args.device, args.eager, runs=args.runs)
             if run is None:
                 print(f"=== {name} seed {seed}: {row['error']}\n"
                       + "\n".join(row["stderr_tail"]), file=sys.stderr, flush=True)

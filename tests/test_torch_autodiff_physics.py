@@ -8,8 +8,9 @@ function and model. Single evaluations are held at 1e-5 absolute plus 1e-5
 relative to the largest entry of the result (a generalized force is a sum
 of virtual-work terms whose size the largest entry carries). One control
 step, from states off a contact or limit switch, is held at 1e-4 on q and
-1e-3 on qd. The Humanoid3D is held at the single-evaluation level only: its
-JAX step compiles for many minutes on a CPU.
+1e-3 on qd. The Humanoid3D is held against JAX at the single-evaluation
+level only (its JAX step compiles for many minutes on a CPU); its whole
+autodiff step is held against the port's row engine.
 """
 
 import dataclasses
@@ -35,6 +36,7 @@ from icem_torch.envs.cheetah import HalfCheetah
 from icem_torch.envs.physics import planar as tp
 from icem_torch.envs.physics import spatial as ts
 from icem_torch.ops.planar_rollout import rollout_planar_reference
+from icem_torch.ops.spatial_rollout import rollout_spatial_reference
 
 PLANAR = {
     "halfcheetah": lambda: jax_cheetah_model(dt=0.05, n_substeps=20),
@@ -233,6 +235,20 @@ def test_autodiff_step_matches_the_row_engine(name):
     q, qd, a = map(torch.from_numpy, _inputs(tm, seed=9))
     got = torch.func.vmap(lambda *x: tp.step(tm, *x))(q, qd, a)
     qs, qds = rollout_planar_reference(tm, q, qd, a[:, None])
+    np.testing.assert_allclose(got[0].numpy(), qs[0].numpy(), rtol=0, atol=2e-3)
+    np.testing.assert_allclose(got[1].numpy(), qds[0].numpy(), rtol=0, atol=8e-2)
+
+
+@pytest.mark.parametrize("name", list(SPATIAL))
+def test_spatial_autodiff_step_matches_the_row_engine(name):
+    """The spatial twin: the autodiff step against the row engine (kernel
+    B2's plain version) at P = 4, h = 1, at the tolerance the JAX package
+    accepts between its two spatial engines (2e-3 on q, 8e-2 on qd;
+    tests/test_spatial_batched.py)."""
+    _, tm = _models(name)
+    q, qd, a = map(torch.from_numpy, _inputs(tm, seed=14))
+    got = torch.func.vmap(lambda *x: ts.step(tm, *x))(q, qd, a)
+    qs, qds = rollout_spatial_reference(tm, q, qd, a[:, None])
     np.testing.assert_allclose(got[0].numpy(), qs[0].numpy(), rtol=0, atol=2e-3)
     np.testing.assert_allclose(got[1].numpy(), qds[0].numpy(), rtol=0, atol=8e-2)
 

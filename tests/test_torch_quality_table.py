@@ -181,7 +181,7 @@ def test_a_failed_seed_gives_an_error_row(monkeypatch):
 
 
 def test_the_table_goes_on_after_a_failed_seed(monkeypatch, tmp_path):
-    def run_seed(name, seed, device=None, eager=False, env=None):
+    def run_seed(name, seed, device=None, eager=False, env=None, runs=None):
         if name == "pendulum/i-cem-blitz" and seed == 0 or name.startswith("mountain_car"):
             return {"error": "seed subprocess rc=-11", "seed": seed, "stderr_tail": []}, None
         return dict(ROWS[seed]), {"launches": {}, "train_mean_return": []}

@@ -9,9 +9,10 @@ max_qd, identity chart), Humanoid3D with the chart recentred by -pi/4
 skew axes. Tolerances are the ones tests/test_spatial_batched.py holds the
 JAX batched engine to against the autodiff engine.
 
-The JAX Humanoid step compiles for minutes on the CPU; its step comparison is
-marked slow, and the tier-1 coverage of the Humanoid step comes from its
-pieces here and from the g++ build of the kernel body
+The JAX Humanoid step compiles for many minutes on the CPU, so its jitted
+comparison is marked slow; tier-1 holds the same 23-dof step against the
+JAX step run eagerly under ``jax.disable_jit()`` (about 15 s in each precision),
+beside its pieces here and the g++ build of the kernel body
 (tests/test_torch_spatial_kernel_body.py).
 """
 
@@ -236,6 +237,41 @@ def test_step_rows_matches_jax_humanoid():
     jm, tm = _models("humanoid3d")
     Q, QD = _states(tm, 16, seed=4, spread=0.3)
     _step_case(jm, tm, Q, QD, _controls(tm, 16))
+
+
+def _eager_steps(jm, tm, *arrays):
+    """One control step of both row engines on the same numpy arrays, the
+    JAX one op by op (no program compile): ((jq, jqd), (tq, tqd))."""
+    with jax.disable_jit():
+        want = jsb.step_batched(jm, *map(jnp.asarray, arrays))
+    want = tuple(map(np.asarray, want))
+    got = tuple(x.numpy() for x in tsb.step_batched(tm, *map(torch.from_numpy, arrays)))
+    assert got[0].dtype == want[0].dtype == arrays[0].dtype
+    return want, got
+
+
+def test_step_rows_matches_eager_jax_humanoid():
+    """The 23-dof step (Humanoid3D, chart recentred by -pi/4, per-dof
+    max_qd, the motor speed line, the valve) against the JAX batched step
+    run eagerly: the inputs and the tolerance (1e-4 on q, 1e-3 on qd) of
+    test_step_rows_matches_jax_humanoid, without its compile.
+
+    q and qd are held in float64, where both engines compute the same
+    algorithm and roundoff can neither hide a difference nor make one; q
+    also in float32. float32 qd cannot be held on these draws: the two
+    packages' sin and cos differ by an ulp on a few per cent of arguments,
+    and rows 6 and 13 (at the max_qd clip) turn single ulps of q into up to
+    9.4e-3 and 2.0e-3 of the port's own qd. The JAX package's own float32
+    qd on row 6 is 5.8e-3 from its float64 step."""
+    jm, tm = _models("humanoid3d")
+    Q, QD = _states(tm, 16, seed=4, spread=0.3)
+    C = _controls(tm, 16)
+    with jax.enable_x64(True):
+        want, got = _eager_steps(jm, tm, *(x.astype(np.float64) for x in (Q, QD, C)))
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-3)
+    want, got = _eager_steps(jm, tm, Q, QD, C)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
 
 
 def test_real_ant_step_matches_jax_autodiff_step():

@@ -24,8 +24,13 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
    at the settings file's own population;
 5. times the planar kernel at every shape of step 2, its plain version and
    the plan step, and computes the kernel's bound from the operations and
-   bytes of this run; then builds the kernels' profile variant and prints
-   the cycles one trajectory's group of lanes spends in each phase group;
+   bytes of this run; [switch]: runs 3 plan steps of step 4's configuration
+   twice each, from the same planner state on the same injected noise,
+   through the kernel and through its plain version (swapped into the env
+   for the phase), and prints how far the executed actions, the elites and
+   the trajectories' costs differ (only finiteness is held); then builds
+   the kernels' profile variant and prints the cycles one trajectory's
+   group of lanes spends in each phase group;
 6. runs the spatial rollout kernel against ``rollout_spatial_reference`` at
    every shape the spatial path launches: Ant3D and HumanoidStandup3D at
    P = 4,115 (4,096 fresh rows + 19 elites, every iteration of the scanned
@@ -146,7 +151,12 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     episode each planner), printed, and ``cem_door_sanity``'s flatline check
     (vanilla CEM on Door, budget 64, seeds 0 and 1, 50 steps) with its
     assertions held;
-24. [sharded]: the sharded planner (``icem_torch/parallel``), last. One
+24. [diagnosis]: ``icem_torch/tools/ensemble_diagnosis.py``'s experiment,
+    cut (1 random and 3 ground-truth i-cem-blitz episodes of 100 steps, the
+    HalfCheetah ensemble trained 2 epochs, k-step RMSE at k = 1, 5, 30, one
+    100-step episode planned through it): the JAX script's keys in every
+    phase, every number finite, and B1's launches those of the episodes;
+25. [sharded]: the sharded planner (``icem_torch/parallel``), last. One
     rank under NCCL in this process: the driver on
     settings/halfcheetah_running/i-cem-blitz.json and cem-std.json with
     controller_params.sharded=true (1,000 steps each, held as in step 11 and
@@ -179,6 +189,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import itertools
 import json
 import os
 import re
@@ -780,6 +791,116 @@ def phase_times(device, shapes, plain_ms: float):
     log("[times] library_ms: none; no single PyTorch call computes a planar rollout")
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 ops=ops, P=P, planner_ms=planner)
+
+
+SWITCH_STEPS = 3
+SWITCH_COST_GAP = 1e-3  # a trajectory's cost gap counted as a switch divergence
+
+
+def _injected_sampler(step: int, device):
+    """``sample_action_sequences`` on noise drawn from a generator seeded by
+    (plan step, call): two plan steps from the same state get the same noise
+    call for call, as tests/test_torch_icem.py injects it."""
+    from icem_torch.ops.colored_noise import sample_colored_action_noise
+
+    calls = itertools.count()
+
+    def sampler(cfg, generator, mean, std, num_traj):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1000 * (step + 1) + next(calls))
+        noise = sample_colored_action_noise(gen, cfg.noise_beta, num_traj, cfg.horizon,
+                                            cfg.action_dim)
+        low, high = cfg.bounds(mean.device)
+        return torch.clamp(noise * std + mean, low, high)
+    return sampler
+
+
+def phase_switch_decisions(device, cfg, steps: int = SWITCH_STEPS):
+    """[switch] (ROADMAP C 2): do the roundoff-level switch divergences
+    between B1 and its plain version change the planner's decisions?
+
+    At the main path's population, each of ``steps`` plan steps runs twice
+    from the same (state, mean, std, elites) on the same injected noise:
+    once through B1 and once with ``rollout_planar_reference`` swapped into
+    the env for the phase. Printed per step: the largest |Δ| of the executed
+    action, how many of the final elites of the kernel's run have no equal
+    (within 1e-4 on every action) in the plain run's, and how many
+    trajectories of each CEM iteration differ in cost by more than
+    SWITCH_COST_GAP. Only finiteness is held. The kernel's run goes on to
+    the next step (its real step on B1). These launches compare the kernel
+    with its plain version and are not counted."""
+    from icem_torch.controllers import icem as ic
+    from icem_torch.envs import planar_base
+    from icem_torch.envs.cheetah import HalfCheetah
+    from icem_torch.models.ground_truth import GroundTruthModel
+    from icem_torch.ops import planar_rollout
+    from icem_torch.ops.planar_rollout import rollout_planar, rollout_planar_reference
+
+    env = HalfCheetah(exclude_current_positions_from_observation=True, penalise_flipping=True)
+    model = GroundTruthModel(env=env)
+    env_gen = torch.Generator(device=device)
+    env_gen.manual_seed(SEED)
+    state = env.init_state(env_gen)
+    obs = env.observation(state)
+    pstate = ic.init_state(cfg, env.obs_dim, torch.Generator(device=device).manual_seed(SEED))
+    sampler = ic.sample_action_sequences
+    found = []
+    try:
+        for step in range(steps):
+            runs = {}
+            for name, rollout in (("kernel", rollout_planar), ("plain", rollout_planar_reference)):
+                costs = []
+
+                def cost_fn(o, a, o2, costs=costs):
+                    c = env.cost_fn(o, a, o2)
+                    costs.append(torch.sum(c, dim=0))
+                    return c
+
+                planar_base.rollout_planar = rollout
+                ic.sample_action_sequences = _injected_sampler(step, device)
+                before = planar_rollout.LAUNCHES
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = ic.plan_step(cfg, model.predict_fn, cost_fn, pstate, obs, state)
+                torch.cuda.synchronize()
+                runs[name] = (res, costs, time.perf_counter() - t0)
+                want = cfg.opt_iterations if rollout is rollout_planar else 0
+                check(planar_rollout.LAUNCHES - before == want,
+                      f"[switch] the {name} run launched B1 {planar_rollout.LAUNCHES - before} "
+                      f"times, not {want}")
+            planar_base.rollout_planar = rollout_planar
+            (kres, kcosts, k_s), (pres, pcosts, p_s) = runs["kernel"], runs["plain"]
+            d_action = float(torch.max(torch.abs(kres.action - pres.action)))
+            ke = kres.state.elite_actions.reshape(cfg.num_elites, -1)
+            pe = pres.state.elite_actions.reshape(cfg.num_elites, -1)
+            nearest = torch.abs(ke[:, None] - pe[None]).amax(dim=2).min(dim=1).values
+            elites_differ = int((nearest > 1e-4).sum())
+            cost_gaps = [int((torch.abs(kc - pc) > SWITCH_COST_GAP).sum())
+                         for kc, pc in zip(kcosts, pcosts)]
+            check(len(kcosts) == len(pcosts) == cfg.opt_iterations,
+                  f"[switch] {len(kcosts)} / {len(pcosts)} cost evaluations a plan step")
+            for what, t in (("action", kres.action), ("plain action", pres.action),
+                            ("elites", kres.state.elite_actions),
+                            ("plain elites", pres.state.elite_actions),
+                            ("costs", torch.cat(kcosts)), ("plain costs", torch.cat(pcosts))):
+                check(bool(torch.isfinite(t).all()), f"[switch] step {step}: non-finite {what}")
+            found.append(dict(action_max_abs_diff=d_action, elites_differ=elites_differ,
+                              cost_gaps=cost_gaps))
+            log(f"[switch] plan step {step}, pop {cfg.num_simulated_trajectories} h "
+                f"{cfg.horizon}: executed action max |Δ| {d_action:.3e}; elites of the "
+                f"kernel's run with no equal in the plain run's: {elites_differ} of "
+                f"{cfg.num_elites}; trajectories with |Δcost| > {SWITCH_COST_GAP:g} per CEM "
+                f"iteration: {cost_gaps} of {[int(c.numel()) for c in kcosts]}; best cost "
+                f"{float(kres.expected_cost):.4f} / {float(pres.expected_cost):.4f}; the plan "
+                f"step {k_s:.2f} s through B1, {p_s:.2f} s through the plain version")
+            pstate = kres.state
+            state, obs, _, _ = env.step(state, kres.action)
+    finally:
+        planar_base.rollout_planar = rollout_planar
+        ic.sample_action_sequences = sampler
+    log(f"[switch] over {steps} plan steps: executed actions max |Δ| "
+        f"{max(f['action_max_abs_diff'] for f in found):.3e}, elites differing "
+        f"{[f['elites_differ'] for f in found]}, cost gaps {[f['cost_gaps'] for f in found]}")
 
 
 def phase_planar_build_report(info, models):
@@ -2530,6 +2651,73 @@ def phase_quality(device, card: str, workdir: str):
 
 
 # ---------------------------------------------------------------------------
+# [diagnosis]: icem_torch/tools/ensemble_diagnosis.py on the card, cut
+
+DIAGNOSIS_SIZES = dict(n_random=1, n_expert=3, n_heldout=1, n_plan=1, ks=(1, 5, 30),
+                       task_horizon=100, epochs=2)
+# the keys of scripts/ensemble_diagnosis.py's output, by phase
+DIAGNOSIS_KEYS = {"what", "env", "task_horizon", "device", "phases", "reference_points",
+                  "verdict"}
+DIAGNOSIS_PHASE_KEYS = {
+    "data": {"random_episodes", "expert_episodes", "expert_returns", "random_returns",
+             "wall_s"},
+    "train": {"nll", "mse", "num_transitions", "wall_s"},
+    "open_loop_rmse": {"heldout_episodes", "starts_per_ep_every", "fwd_vel_obs_index",
+                       "true_fwd_vel_rms", "rmse_by_k", "wall_s"},
+    "plan_with_learned_model": {"budget", "episodes", "realized_returns", "mean_return",
+                                "optimism_gap_per_episode", "wall_s"},
+}
+
+
+def _numbers(tree):
+    """Every number in a JSON-like tree."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _numbers(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _numbers(v)]
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        return [tree]
+    return []
+
+
+def phase_diagnosis(device, card: str):
+    """[diagnosis]: ``ensemble_diagnosis.diagnose`` at DIAGNOSIS_SIZES on the
+    card: random and ground-truth i-cem-blitz episodes (B1: the planner's 3
+    launches and the real step's 1 a step), the ensemble trained on them,
+    the k-step RMSE and the ensemble planner's episode (B1 runs its real
+    steps). Held: the JAX script's keys in every phase, every number finite,
+    and B1's launches those of the episodes. Returns this phase's launches."""
+    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.tools import ensemble_diagnosis
+
+    sizes = DIAGNOSIS_SIZES
+    planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = ensemble_diagnosis.diagnose(device=device, **sizes)
+    wall = time.perf_counter() - t0
+    launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+    check(set(out) == DIAGNOSIS_KEYS, f"[diagnosis] keys {sorted(out)}")
+    for phase, keys in DIAGNOSIS_PHASE_KEYS.items():
+        check(set(out["phases"].get(phase, {})) == keys,
+              f"[diagnosis] {phase}: keys {sorted(out['phases'].get(phase, {}))}")
+    check(set(out["phases"]["open_loop_rmse"]["rmse_by_k"]) == {str(k) for k in sizes["ks"]},
+          f"[diagnosis] rmse_by_k {out['phases']['open_loop_rmse']['rmse_by_k']}")
+    numbers = _numbers(out)
+    check(all(np.isfinite(x) for x in numbers), f"[diagnosis] a non-finite number: {out}")
+    T = sizes["task_horizon"]
+    want = T * (sizes["n_random"] + 4 * sizes["n_expert"] + sizes["n_plan"])
+    check(launches == {"planar": want, "spatial": 0},
+          f"[diagnosis] launches {launches}, not {want} of B1")
+    log(f"[diagnosis] {json.dumps(out['phases'])}")
+    log(f"[diagnosis] verdict against {out['reference_points']['verdict_anchor']}: "
+        f"{out['verdict'][:out['verdict'].index(':')]}; {len(numbers)} numbers, all finite")
+    log(f"[diagnosis] launches {launches} ({sizes['n_random']} random, {sizes['n_expert']} "
+        f"expert at 4 a step, {sizes['n_plan']} learned-model episode of {T} steps); the "
+        f"phase {wall:.1f} s on {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # [sharded]: the sharded planner (icem_torch/parallel) on the card
 
 SHARDED_RANKS = 2
@@ -2864,6 +3052,7 @@ def main() -> int:
     phase_colored_noise(device)
     path = phase_main_path(device, cfg, plan_steps=20)
     times = phase_times(device, shapes, plain_ms)
+    phase_switch_decisions(device, cfg)
     phase_planar_profile(device, shapes)
     log(f"[wall] {time.perf_counter() - t_start:.1f} s: the HalfCheetah path")
 
@@ -2922,6 +3111,7 @@ def main() -> int:
             f"phases, {time.perf_counter() - t_new:.1f} s together")
         t_new = time.perf_counter()
         quality = phase_quality(device, card, workdir)
+        diagnosis = phase_diagnosis(device, card)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the measurement entry points, "
             f"{time.perf_counter() - t_new:.1f} s")
         # last: the sharded planner; it destroys the groups it made
@@ -2935,14 +3125,14 @@ def main() -> int:
         f"included), {graphs.REPLAYS} replays")
     # each path's launches, read just after it ran with the counts at 0
     launches = {k: driver[k] + other[k] + learned[k] + graph[k] + autodiff[k] + video[k]
-                + quality[k] + sharded[k] for k in driver}
+                + quality[k] + diagnosis[k] + sharded[k] for k in driver}
     launches["planar"] += path["launches"]
     launches["spatial"] += spath["launches"]
     log(f"[launches] main paths: planar {path['launches']}, spatial {spath['launches']}; "
         f"the other controllers {other}; the learned-model runs {learned}; the driver runs "
         f"{driver}; the graph runs of the compiled steps {graph}; the valve HalfCheetah "
         f"{autodiff}; the recorded episodes {video}; the compare_icem_cem row {quality}; the "
-        f"sharded planner {sharded}")
+        f"ensemble diagnosis {diagnosis}; the sharded planner {sharded}")
 
     a = stimes[ant.name]
     log(json.dumps({"kernels": [{

@@ -119,6 +119,12 @@ It builds the kernels from ``icem_torch/csrc`` (into ``build/``), then:
     same kernel launches; it prints ms per control step both ways, the
     device idle share of each under the profiler, captures and capture
     seconds, and launches per replay;
+    [trace]: the phase markers inside the device episode's control step of
+    the main path and of HalfCheetah i-cem-blitz: 20 replays from one
+    carry with tracing off and on give the same bits, the ring stays empty
+    off and holds 11 stamps a step in phase order on, and the phases sum to
+    95-101 % of the replays' device time (``phase_trace``); the kernels
+    line lists the marker kernel with the stamps it made;
 21. [autodiff]: the autodiff engines (``envs/physics/planar.py``,
     ``spatial.py``) on the card, for each of the six planar shapes, Ant3D
     and HumanoidStandup3D: one control step of 4 states against the same
@@ -225,6 +231,15 @@ def fail(msg: str):
 def check(ok: bool, msg: str):
     if not ok:
         fail(msg)
+
+
+def kernel_launches(since=None) -> dict:
+    """B1's and B2's launches (the store's ``b1.launches`` / ``b2.launches``)
+    in this process, or since the snapshot ``since`` of ``metrics.counters()``."""
+    from icem_torch.runtime import metrics
+
+    grown = metrics.since(since or {})
+    return {"planar": grown.get("b1.launches", 0), "spatial": grown.get("b2.launches", 0)}
 
 
 def card_name_and_power_limit() -> str:
@@ -678,7 +693,7 @@ def phase_main_path(device, cfg, plan_steps: int):
     from icem_torch.controllers import icem as ic
     from icem_torch.envs.cheetah import HalfCheetah
     from icem_torch.models.ground_truth import GroundTruthModel
-    from icem_torch.ops import planar_rollout
+    from icem_torch.runtime import metrics
 
     env = HalfCheetah(exclude_current_positions_from_observation=True,
                       penalise_flipping=True)
@@ -698,9 +713,9 @@ def phase_main_path(device, cfg, plan_steps: int):
     pstate = ic.init_state(cfg, env.obs_dim, plan_gen)
 
     rewards, costs, step_ms, launches = [], [], [], []
-    planar_rollout.LAUNCHES = 0
+    counted = metrics.counters()
     for _ in range(plan_steps):
-        before = planar_rollout.LAUNCHES
+        before = metrics.counter("b1.launches")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = ic.plan_step(cfg, model.predict_fn, env.cost_fn, pstate, obs, state)
@@ -708,10 +723,10 @@ def phase_main_path(device, cfg, plan_steps: int):
         state, obs, rew, _ = env.step(state, res.action)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        launches.append(planar_rollout.LAUNCHES - before)
+        launches.append(metrics.counter("b1.launches") - before)
         rewards.append(rew)
         costs.append(res.expected_cost)
-    main_launches = planar_rollout.LAUNCHES
+    main_launches = kernel_launches(counted)["planar"]
 
     rewards = torch.stack(rewards).cpu().numpy()
     costs = torch.stack(costs).cpu().numpy()
@@ -744,13 +759,13 @@ def phase_main_path(device, cfg, plan_steps: int):
     s = ctrl_env.init_state(env_gen)
     o = ctrl_env.observation(s)
     ctrl.beginning_of_rollout(observation=o, state=s)
-    before = planar_rollout.LAUNCHES
+    before = metrics.counter("b1.launches")
     for _ in range(5):
         a = ctrl.get_action(o, s)
         check(a.shape == (6,) and bool(np.all(np.abs(a) <= 1.0)), f"bad action {a}")
         s, o, _, _ = ctrl_env.step(s, torch.as_tensor(a, device=device))
-    check(planar_rollout.LAUNCHES - before == 5 * 4,
-          f"MpcICem: {planar_rollout.LAUNCHES - before} launches in 5 steps")
+    n = metrics.counter("b1.launches") - before
+    check(n == 5 * 4, f"MpcICem: {n} launches in 5 steps")
     check(bool(torch.isfinite(s).all()), "MpcICem episode state is not finite")
     log(f"[main] MpcICem.get_action from settings/halfcheetah_running/i-cem-blitz.json "
         f"(pop 40): 5 steps, 4 launches each, last expected cost "
@@ -833,8 +848,8 @@ def phase_switch_decisions(device, cfg, steps: int = SWITCH_STEPS):
     from icem_torch.envs import planar_base
     from icem_torch.envs.cheetah import HalfCheetah
     from icem_torch.models.ground_truth import GroundTruthModel
-    from icem_torch.ops import planar_rollout
     from icem_torch.ops.planar_rollout import rollout_planar, rollout_planar_reference
+    from icem_torch.runtime import metrics
 
     env = HalfCheetah(exclude_current_positions_from_observation=True, penalise_flipping=True)
     model = GroundTruthModel(env=env)
@@ -858,16 +873,15 @@ def phase_switch_decisions(device, cfg, steps: int = SWITCH_STEPS):
 
                 planar_base.rollout_planar = rollout
                 ic.sample_action_sequences = _injected_sampler(step, device)
-                before = planar_rollout.LAUNCHES
+                before = metrics.counter("b1.launches")
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res = ic.plan_step(cfg, model.predict_fn, cost_fn, pstate, obs, state)
                 torch.cuda.synchronize()
                 runs[name] = (res, costs, time.perf_counter() - t0)
                 want = cfg.opt_iterations if rollout is rollout_planar else 0
-                check(planar_rollout.LAUNCHES - before == want,
-                      f"[switch] the {name} run launched B1 {planar_rollout.LAUNCHES - before} "
-                      f"times, not {want}")
+                n = metrics.counter("b1.launches") - before
+                check(n == want, f"[switch] the {name} run launched B1 {n} times, not {want}")
             planar_base.rollout_planar = rollout_planar
             (kres, kcosts, k_s), (pres, pcosts, p_s) = runs["kernel"], runs["plain"]
             d_action = float(torch.max(torch.abs(kres.action - pres.action)))
@@ -1036,7 +1050,7 @@ def phase_planar_controllers(device, pop: int = 2048, steps: int = 5):
     the planner's iterations plus the real step in launches per step."""
     from icem_torch.controllers.icem import MpcICem
     from icem_torch.models.ground_truth import GroundTruthModel
-    from icem_torch.ops import planar_rollout
+    from icem_torch.runtime import metrics
     from icem_torch.runtime.config import resolve_settings
 
     blitz = resolve_settings("settings/defaults/i-cem-blitz.json").controller_params
@@ -1054,12 +1068,12 @@ def phase_planar_controllers(device, pop: int = 2048, steps: int = 5):
         ctrl.beginning_of_rollout(observation=o, state=s)
         launches, t0 = [], time.perf_counter()
         for _ in range(steps):
-            before = planar_rollout.LAUNCHES
+            before = metrics.counter("b1.launches")
             a = ctrl.get_action(o, s)
             check(a.shape == (env.action_dim,) and bool(np.all(np.isfinite(a)))
                   and bool(np.all(np.abs(a) <= 1.0)), f"{env.name}: bad action {a}")
             s, o, _, _ = env.step(s, torch.as_tensor(a, device=device))
-            launches.append(planar_rollout.LAUNCHES - before)
+            launches.append(metrics.counter("b1.launches") - before)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / steps
         check(all(n == per_step for n in launches),
@@ -1214,7 +1228,7 @@ def phase_spatial_main_path(device, plan_steps: int):
     from icem_torch.controllers import icem as ic
     from icem_torch.envs.ant3d import Ant3D
     from icem_torch.models.ground_truth import GroundTruthModel
-    from icem_torch.ops import spatial_rollout
+    from icem_torch.runtime import metrics
 
     env = Ant3D(exclude_current_positions_from_observation=False)
     model = GroundTruthModel(env=env)
@@ -1235,9 +1249,9 @@ def phase_spatial_main_path(device, plan_steps: int):
     x0 = float(state[0])
 
     rewards, heights, step_ms, launches = [], [], [], []
-    spatial_rollout.LAUNCHES = 0
+    counted = metrics.counters()
     for _ in range(plan_steps):
-        before = spatial_rollout.LAUNCHES
+        before = metrics.counter("b2.launches")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = ic.plan_step(cfg, model.predict_fn, env.cost_fn, pstate, obs, state)
@@ -1245,10 +1259,10 @@ def phase_spatial_main_path(device, plan_steps: int):
         state, obs, rew, _ = env.step(state, res.action)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        launches.append(spatial_rollout.LAUNCHES - before)
+        launches.append(metrics.counter("b2.launches") - before)
         rewards.append(rew)
         heights.append(state[2])
-    main_launches = spatial_rollout.LAUNCHES
+    main_launches = kernel_launches(counted)["spatial"]
 
     rewards = torch.stack(rewards).cpu().numpy()
     heights = torch.stack(heights).cpu().numpy()
@@ -1277,7 +1291,7 @@ def phase_spatial_main_path(device, plan_steps: int):
 def phase_spatial_controller(device):
     """MpcICem.get_action built from settings/ant/i-cem-blitz.json as the
     driver builds it: pop 128, h 12, the scanned loop, beta 1.0."""
-    from icem_torch.ops import spatial_rollout
+    from icem_torch.runtime import metrics
 
     env, ctrl = settings_controller("ant/i-cem-blitz", device,
                                        f"controller_params.seed={SEED + 2}")
@@ -1288,12 +1302,12 @@ def phase_spatial_controller(device):
     s = env.init_state(gen)
     o = env.observation(s)
     ctrl.beginning_of_rollout(observation=o, state=s)
-    before = spatial_rollout.LAUNCHES
+    before = metrics.counter("b2.launches")
     for _ in range(5):
         a = ctrl.get_action(o, s)
         check(a.shape == (8,) and bool(np.all(np.abs(a) <= 1.0)), f"bad action {a}")
         s, o, _, _ = env.step(s, torch.as_tensor(a, device=device))
-    n = spatial_rollout.LAUNCHES - before
+    n = metrics.counter("b2.launches") - before
     check(n == 5 * 4, f"MpcICem on Ant: {n} launches in 5 steps")
     check(bool(torch.isfinite(s).all()), "MpcICem Ant episode state is not finite")
     log(f"[ant] MpcICem.get_action from settings/ant/i-cem-blitz.json, pop 128 h 12 scan: "
@@ -1305,7 +1319,7 @@ def phase_humanoid(device, plan_steps: int):
     from icem_torch.controllers import icem as ic
     from icem_torch.envs.humanoid3d import HumanoidStandup3D
     from icem_torch.models.ground_truth import GroundTruthModel
-    from icem_torch.ops import spatial_rollout
+    from icem_torch.runtime import metrics
 
     env = HumanoidStandup3D()
     model = GroundTruthModel(env=env)
@@ -1319,7 +1333,7 @@ def phase_humanoid(device, plan_steps: int):
     pstate = ic.init_state(cfg, env.obs_dim, plan_gen)
     rewards, launches, step_ms = [], [], []
     for _ in range(plan_steps):
-        before = spatial_rollout.LAUNCHES
+        before = metrics.counter("b2.launches")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = ic.plan_step(cfg, model.predict_fn, env.cost_fn, pstate, obs, state)
@@ -1327,7 +1341,7 @@ def phase_humanoid(device, plan_steps: int):
         state, obs, rew, _ = env.step(state, res.action)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        launches.append(spatial_rollout.LAUNCHES - before)
+        launches.append(metrics.counter("b2.launches") - before)
         rewards.append(rew)
         check(bool(torch.isfinite(state).all()), "non-finite HumanoidStandup3D state")
     rewards = torch.stack(rewards).cpu().numpy()
@@ -1447,14 +1461,13 @@ def phase_other_controllers(device, steps: int = 5):
     from icem_torch.envs.ant3d import Ant3D
     from icem_torch.main import get_controllers
     from icem_torch.models.ground_truth import GroundTruthModel
-    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime import metrics
     from icem_torch.runtime.config import apply_overrides, resolve_settings
 
     cheetah_settings = resolve_settings("settings/halfcheetah_running/cem-std.json")
     cheetah = env_from_string(cheetah_settings.env, **cheetah_settings.env_params)
     ant = Ant3D(exclude_current_positions_from_observation=False)
-    counters = {"planar": planar_rollout, "spatial": spatial_rollout}
-    totals = {k: 0 for k in counters}
+    totals = {"planar": 0, "spatial": 0}
 
     def drive(env, name, ctrl, per_step, kernel, n_steps):
         gen = torch.Generator(device=device)
@@ -1462,22 +1475,22 @@ def phase_other_controllers(device, steps: int = 5):
         s = env.init_state(gen)
         o = env.observation(s)
         ctrl.beginning_of_rollout(observation=o, state=s)
-        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+        counted = metrics.counters()
         launches, step_ms = [], []
         for _ in range(n_steps):
-            before = counters[kernel].LAUNCHES
+            before = kernel_launches()[kernel]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             a = ctrl.get_action(o, s)
             s, o, _, _ = env.step(s, torch.as_tensor(a, device=device))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-            launches.append(counters[kernel].LAUNCHES - before)
+            launches.append(kernel_launches()[kernel] - before)
             check(a.shape == (env.action_dim,) and bool(np.all(np.isfinite(a)))
                   and bool(np.all(np.abs(a) <= 1.0)), f"{name} on {env.name}: bad action {a}")
         for k in totals:
-            totals[k] += counters[k].LAUNCHES
-        other = sum(m.LAUNCHES for k, m in counters.items() if k != kernel)
+            totals[k] += kernel_launches(counted)[k]
+        other = sum(n for k, n in kernel_launches(counted).items() if k != kernel)
         check(all(n == per_step for n in launches) and other == 0,
               f"{name} on {env.name}: launches per step {launches} (expected {per_step}), "
               f"{other} of the other kernel")
@@ -1678,7 +1691,7 @@ def phase_learned_driver(device, workdir: str):
     from icem_torch import main as tmain
     from icem_torch.envs.planar_base import PlanarEnv
     from icem_torch.models import forward_model_from_string
-    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime import metrics
     from icem_torch.runtime.config import apply_overrides, resolve_settings
     from icem_torch.runtime.rollout import RolloutManager
 
@@ -1693,13 +1706,13 @@ def phase_learned_driver(device, workdir: str):
                  + params.training_iterations * params.number_of_rollouts) \
             * params.rollout_params.task_horizon
         expected = steps * env.action_repeat if isinstance(env, PlanarEnv) else 0
-        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+        counted = metrics.counters()
         with host_waits() as waits, timed_train(type(model)) as train_s:
             t0 = time.perf_counter()
             info = tmain.run(params, device=device)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+        launches = kernel_launches(counted)
         for k in totals:
             totals[k] += launches[k]
         check(info["step"] == [0, 1], f"{name}: iterations {info['step']}")
@@ -1906,21 +1919,20 @@ def drive_settings(device, workdir: str, tag: str, run) -> dict:
     import pickle
 
     from icem_torch import main as tmain
-    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime import metrics
     from icem_torch.runtime.config import apply_overrides, resolve_settings
     from icem_torch.runtime.rollout import RolloutManager
 
     name, overrides, kernel, steps, expected, least, pitch, idle_steps = run
-    counters = {"planar": planar_rollout, "spatial": spatial_rollout}
     params = apply_overrides(resolve_settings(f"settings/{name}.json"), [
         *overrides, f"model_dir={os.path.join(workdir, tag)}", f"seed={SEED}"])
-    planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+    counted = metrics.counters()
     with host_waits() as waits:
         t0 = time.perf_counter()
         info = tmain.run(params, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {k: m.LAUNCHES for k, m in counters.items()}
+    launches = kernel_launches(counted)
     syncs = waits[0]
     ret = info["train_mean_return"][-1]
     initial = params.initial_number_of_rollouts if params.initial_controller != "none" else 0
@@ -2172,29 +2184,26 @@ def phase_graph(device):
     clock, median after the captures), the device idle share of each under
     the profiler, captures and capture seconds, and launches per replay.
     Returns the launches of each kernel in the graph runs."""
-    from icem_torch.ops import planar_rollout, spatial_rollout
     from icem_torch.runtime import graphs
+    from icem_torch.runtime import metrics
 
-    counters = {"planar": planar_rollout, "spatial": spatial_rollout}
-    totals = {k: 0 for k in counters}
+    totals = {"planar": 0, "spatial": 0}
     t_phase = time.perf_counter()
     with replay_waits() as waits_in_replays:
         for tag, name, overrides, steps, idle_steps, loop in GRAPH_PATHS:
             t_path = time.perf_counter()
             runs = {}
             for mode in ("eager", "eager again", "graph"):
-                for m in counters.values():
-                    m.LAUNCHES = 0
-                before = graphs.REPLAYS, graphs.CAPTURES, graphs.CAPTURE_SECONDS
+                counted = metrics.counters()
                 waits_in_replays.clear()
                 ctx = graphs.disable_graphs() if mode != "graph" else contextlib.nullcontext()
                 with ctx:
                     env, ctrl, rm = _graph_setup(device, name, overrides, tag == "valve")
                     held, ms, more = _graph_drive(env, ctrl, rm, steps, loop, device)
-                    launches = {k: m.LAUNCHES for k, m in counters.items()}
+                    launches = kernel_launches(counted)
                     replays, captures, capture_s = (
-                        a - b for a, b in zip((graphs.REPLAYS, graphs.CAPTURES,
-                                               graphs.CAPTURE_SECONDS), before))
+                        metrics.since(counted).get(k, 0)
+                        for k in ("graphs.replays", "graphs.captures", "graphs.capture_s"))
                     waits = sum(waits_in_replays)
                     idle = None
                     if mode != "eager again":
@@ -2234,6 +2243,100 @@ def phase_graph(device):
             log(f"[wall] {time.perf_counter() - t_path:.1f} s: the graph phase's {tag} path")
     log(f"[wall] {time.perf_counter() - t_phase:.1f} s: the graph phase")
     return totals
+
+
+# the device episode's control step with the trace's phase markers: the main
+# path at bench.py's population and HalfCheetah i-cem-blitz as it ships
+TRACE_PATHS = (("main", "halfcheetah_running/i-cem-blitz", _MAIN_PATH_WIDTHS),
+               ("i-cem-blitz", "halfcheetah_running/i-cem-blitz", ()))
+# the markers of one control step by phase id (``metrics.PHASES``): the
+# step's, noise / rollout / select for each of 3 CEM iterations, the env step's
+TRACE_ORDER = [0, 1, 2, 3, 1, 2, 3, 1, 2, 3, 4]
+
+
+def phase_trace(device, steps: int = 20):
+    """[trace]: the phase markers (``runtime/metrics.py``) inside the device
+    episode's compiled control step, for each path of TRACE_PATHS. Once both
+    graph keys are captured, ``steps`` replays run from one saved carry twice:
+    tracing off, then on (``metrics.tracing``). Held: off, the marker ring
+    stays empty; on, it holds 11 stamps a step in phase order, non-decreasing
+    in time; the rows and the final carry are the same bits both ways; the
+    phases' device time sums to 95-101 % of the replays' (CUDA events around
+    them). Printed: ms per phase and step, and the device ms both ways.
+    Returns the kernels' launches and the markers' stamps."""
+    from torch.utils import _pytree as pytree
+
+    from icem_torch.runtime import metrics
+    from icem_torch.runtime.seeding import Seeding
+
+    counted = metrics.counters()
+    stamped = 0
+    for tag, name, overrides in TRACE_PATHS:
+        env, ctrl, rm = _graph_setup(device, name, overrides, False)
+        step = rm._control_step(ctrl)
+        state, obs = env.reset_with_mode(Seeding.generator_for("trace/env", device), "train")
+        carry = [ctrl.init_plan_state(env.obs_dim, Seeding.generator_for("trace/plan", device)),
+                 state, obs, torch.zeros((), device=device)]
+        for _ in range(2):  # captures the first step's key, then the steady one
+            *carry, _ = step(*carry, ctrl.live_model_params)
+        leaves, spec = pytree.tree_flatten(carry)
+        saved = [x.get_state() if isinstance(x, torch.Generator)
+                 else x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+
+        def drive(on: bool):
+            fresh = []
+            for x, v in zip(leaves, saved):
+                if isinstance(x, torch.Generator):
+                    x.set_state(v)
+                fresh.append(v.clone() if isinstance(x, torch.Tensor) else x)
+            c = pytree.tree_unflatten(fresh, spec)
+            rows = []
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            metrics.reset()
+            metrics.tracing(on)
+            try:
+                start.record()
+                for _ in range(steps):
+                    *c, row = step(*c, ctrl.live_model_params)
+                    rows.append(row)
+                end.record()
+            finally:
+                metrics.tracing(False)
+            torch.cuda.synchronize()
+            held = [torch.stack(rows)] + [x.get_state() if isinstance(x, torch.Generator) else x
+                                          for x in pytree.tree_leaves(c)]
+            return held, start.elapsed_time(end), metrics.marker_stamps()
+
+        off, off_ms, off_stamps = drive(False)
+        on, on_ms, stamps = drive(True)
+        metrics.reset()
+        same = len(off) == len(on) and all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(off, on))
+        ids = stamps[0::2] if stamps else []
+        times = stamps[1::2] if stamps else []
+        per = metrics.phase_ms(stamps or [])
+        phase_sum = sum(sum(ms) for ms in per.values())
+        share = phase_sum / on_ms
+        stamped += len(ids)
+        cut = f" {' '.join(overrides)}" if overrides else ""
+        log(f"[trace] {tag} (settings/{name}.json{cut}, {steps} replays of the control step): "
+            f"device {off_ms / steps:.4f} ms a step markers off, {on_ms / steps:.4f} on; "
+            f"{len(ids)} stamps; ms a step by phase "
+            + ", ".join(f"{k} {sum(v) / max(len(v), 1):.4f}" for k, v in per.items())
+            + f"; the phases {phase_sum:.3f} of {on_ms:.3f} ms ({100 * share:.2f} %); "
+            f"{'the same bits' if same else 'OTHER BITS'} off and on")
+        check(off_stamps == [], f"trace {tag}: {len(off_stamps or []) // 2} stamps with "
+              f"tracing off")
+        check(ids == TRACE_ORDER * steps, f"trace {tag}: stamps {ids[:24]}... are not "
+              f"{len(TRACE_ORDER)} a step in phase order")
+        check(all(b >= a for a, b in zip(times, times[1:])), f"trace {tag}: stamps go back")
+        check(same, f"trace {tag}: the replays with markers on are not the bits of those off")
+        check(0.95 <= share <= 1.01, f"trace {tag}: the phases cover {100 * share:.2f} % of "
+              f"the replays' device time")
+    return dict(kernel_launches(counted), markers=stamped)
 
 
 # ---------------------------------------------------------------------------
@@ -2331,6 +2434,7 @@ def phase_autodiff(device):
     import dataclasses
 
     from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime import metrics
 
     for env in _autodiff_envs():
         model, spatial = env.model, hasattr(env.model, "axis")
@@ -2389,7 +2493,7 @@ def phase_autodiff(device):
     state, obs = env.reset_with_mode(gen, "train")
     ctrl.beginning_of_rollout(observation=obs, state=state)
     ctrl.get_action(obs, state)
-    planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+    counted = metrics.counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -2397,7 +2501,7 @@ def phase_autodiff(device):
         state, obs, _, _ = env.step(state, torch.as_tensor(a, device=device))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / 20
-    launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+    launches = kernel_launches(counted)
     check(bool(torch.isfinite(state).all()), "the valve HalfCheetah's state is not finite")
     # the planner's 3 launches a step; the real step runs the autodiff engine
     check(launches == {"planar": 60, "spatial": 0}, f"valve HalfCheetah launches {launches}")
@@ -2444,7 +2548,7 @@ def phase_video(device, workdir: str):
     import pickle
 
     from icem_torch import main as tmain
-    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime import metrics
     from icem_torch.runtime.config import apply_overrides, resolve_settings
     from icem_torch.runtime.video import VideoRecorder
 
@@ -2459,10 +2563,10 @@ def phase_video(device, workdir: str):
                 f"rollout_params.task_horizon={VIDEO_STEPS}", "training_iterations=1",
                 f"model_dir={os.path.join(workdir, f'video_{tag}_{int(recorded)}')}",
                 f"seed={SEED}", *([f"rollout_params.record={videos}"] if recorded else [])])
-            planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+            counted = metrics.counters()
             with host_waits() as waits:
                 info = tmain.run(params, device=device)
-            launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+            launches = kernel_launches(counted)
             per_step[recorded] = info["train_exec_time"][0] * 1e3 / VIDEO_STEPS
             check(launches[kernel] == 4 * VIDEO_STEPS, f"{name}: launches {launches}")
             if not recorded:
@@ -2571,7 +2675,7 @@ def phase_quality(device, card: str, workdir: str):
     4. ``cem_door_sanity.flatline_check`` for QUALITY_DOOR_SANITY: its
        assertions held (different live actions, a shut door, the constant
        cost)."""
-    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime import metrics
     from icem_torch.tools import cem_door_sanity, compare_icem_cem, quality_table
 
     t_phase = time.perf_counter()
@@ -2629,10 +2733,10 @@ def phase_quality(device, card: str, workdir: str):
         f"{child_launches}")
 
     env_name, budget, seeds, episodes, steps = QUALITY_COMPARE
-    planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+    counted = metrics.counters()
     t0 = time.perf_counter()
     row = compare_icem_cem.compare_row(env_name, budget, seeds, episodes, steps, device)
-    launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+    launches = kernel_launches(counted)
     log(f"[quality] compare_icem_cem {env_name}, budget {budget}, seeds {list(seeds)}, "
         f"{episodes} episode of {steps} steps (printed, not held): {json.dumps(row)}; "
         f"launches {launches}; {time.perf_counter() - t0:.1f} s")
@@ -2687,15 +2791,15 @@ def phase_diagnosis(device, card: str):
     the k-step RMSE and the ensemble planner's episode (B1 runs its real
     steps). Held: the JAX script's keys in every phase, every number finite,
     and B1's launches those of the episodes. Returns this phase's launches."""
-    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime import metrics
     from icem_torch.tools import ensemble_diagnosis
 
     sizes = DIAGNOSIS_SIZES
-    planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+    counted = metrics.counters()
     t0 = time.perf_counter()
     out = ensemble_diagnosis.diagnose(device=device, **sizes)
     wall = time.perf_counter() - t0
-    launches = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+    launches = kernel_launches(counted)
     check(set(out) == DIAGNOSIS_KEYS, f"[diagnosis] keys {sorted(out)}")
     for phase, keys in DIAGNOSIS_PHASE_KEYS.items():
         check(set(out["phases"].get(phase, {})) == keys,
@@ -2822,7 +2926,7 @@ def sharded_rank(rank: int, world: int, store: str, out: str):
 
     import torch.distributed as dist
 
-    from icem_torch.ops import planar_rollout, spatial_rollout
+    from icem_torch.runtime import metrics
 
     device = torch.device("cuda")
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
@@ -2839,7 +2943,7 @@ def sharded_rank(rank: int, world: int, store: str, out: str):
         o = env.observation(s)
         ctrl.beginning_of_rollout(observation=o, state=s)
         steps, step_ms = [], []
-        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+        counted = metrics.counters()
         with host_waits() as waits:
             for _ in range(SHARDED_STEPS):
                 torch.cuda.synchronize()
@@ -2851,8 +2955,7 @@ def sharded_rank(rank: int, world: int, store: str, out: str):
                 st = ctrl._pstate
                 steps.append(dict(action=a, **{k: getattr(st, k).cpu() for k in _SHARDED_FIELDS}))
         result[name] = dict(steps=steps, step_ms=step_ms, host_waits=waits[0],
-                            launches={"planar": planar_rollout.LAUNCHES,
-                                      "spatial": spatial_rollout.LAUNCHES})
+                            launches=kernel_launches(counted))
     torch.save(result, out)
     dist.destroy_process_group()
 
@@ -2881,17 +2984,18 @@ def phase_sharded(device, workdir: str, driver_ms: dict):
     import subprocess
 
     from icem_torch.controllers import icem as ic
-    from icem_torch.ops import planar_rollout, spatial_rollout
     from icem_torch.parallel.plan import close_local_groups, init_rank_stream
     from icem_torch.runtime import graphs
+    from icem_torch.runtime import metrics
 
     t_phase = time.perf_counter()
     totals = {"planar": 0, "spatial": 0}
     for i, run in enumerate(SHARDED_DRIVER_RUNS):
-        before = graphs.CAPTURES, graphs.REPLAYS
+        counted = metrics.counters()
         with replay_waits() as waits:
             graph = drive_settings(device, workdir, f"sharded_{i}_graph", run)
-        captures, replays = graphs.CAPTURES - before[0], graphs.REPLAYS - before[1]
+        grown = metrics.since(counted)
+        captures, replays = grown.get("graphs.captures", 0), grown.get("graphs.replays", 0)
         with graphs.disable_graphs():
             eager = drive_settings(device, workdir, f"sharded_{i}_eager", run)
         for k in totals:
@@ -2990,7 +3094,7 @@ def phase_sharded(device, workdir: str, driver_ms: dict):
             rank_stream=init_rank_stream(plan_gen))
         fm = ctrl.forward_model
         model_state = None
-        planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+        counted = metrics.counters()
         for step in range(SHARDED_STEPS):
             model_state = fm.got_actual_observation_and_env_state(
                 observation=o, env_state=s, model_state=model_state)
@@ -3004,7 +3108,7 @@ def phase_sharded(device, workdir: str, driver_ms: dict):
             check(same, f"[sharded] {name}, step {step + 1}: the ranks differ from the "
                         f"emulation: |da| = {gap}")
             s, o, _, _ = env.step(s, res.action)
-        emulated = {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES}
+        emulated = kernel_launches(counted)
         log(f"[sharded] two ranks (gloo over a FileStore, one card): {name} sharded=true, "
             f"{SHARDED_STEPS} plan steps; actions, means, stds and elites of both ranks the "
             f"same bits, and the same bits as the one-process emulation on the card "
@@ -3040,6 +3144,7 @@ def main() -> int:
     from icem_torch.envs.ant3d import Ant3D
     from icem_torch.envs.cheetah import HalfCheetah
     from icem_torch.envs.humanoid3d import HumanoidStandup3D
+    from icem_torch.runtime import metrics
 
     ant = Ant3D(exclude_current_positions_from_observation=False)
     humanoid = HumanoidStandup3D()
@@ -3103,7 +3208,9 @@ def main() -> int:
         phase_driver_resume(device, workdir)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the driver")
         graph = phase_graph(device)
-        log(f"[wall] {time.perf_counter() - t_start:.1f} s: the compiled steps")
+        trace = phase_trace(device)
+        log(f"[wall] {time.perf_counter() - t_start:.1f} s: the compiled steps and their "
+            f"phase markers")
         t_new = time.perf_counter()
         autodiff = phase_autodiff(device)
         video = phase_video(device, workdir)
@@ -3118,19 +3225,19 @@ def main() -> int:
         sharded, sherr, shserr = phase_sharded(device, workdir, driver_ms)
         log(f"[wall] {time.perf_counter() - t_start:.1f} s: the sharded planner")
     log(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s after start-up")
-    from icem_torch.runtime import graphs
-
-    log(f"[graph] the whole script: {graphs.CAPTURES} captures in {graphs.CAPTURE_SECONDS:.1f} s "
-        f"({graphs.CAPTURE_SECONDS / max(graphs.CAPTURES, 1):.3f} s each on average, warm-up "
-        f"included), {graphs.REPLAYS} replays")
+    captures, capture_s = metrics.counter("graphs.captures"), metrics.counter("graphs.capture_s")
+    log(f"[graph] the whole script: {captures} captures in {capture_s:.1f} s "
+        f"({capture_s / max(captures, 1):.3f} s each on average, warm-up "
+        f"included), {metrics.counter('graphs.replays')} replays")
     # each path's launches, read just after it ran with the counts at 0
-    launches = {k: driver[k] + other[k] + learned[k] + graph[k] + autodiff[k] + video[k]
-                + quality[k] + diagnosis[k] + sharded[k] for k in driver}
+    launches = {k: driver[k] + other[k] + learned[k] + graph[k] + trace[k] + autodiff[k]
+                + video[k] + quality[k] + diagnosis[k] + sharded[k] for k in driver}
     launches["planar"] += path["launches"]
     launches["spatial"] += spath["launches"]
     log(f"[launches] main paths: planar {path['launches']}, spatial {spath['launches']}; "
         f"the other controllers {other}; the learned-model runs {learned}; the driver runs "
-        f"{driver}; the graph runs of the compiled steps {graph}; the valve HalfCheetah "
+        f"{driver}; the graph runs of the compiled steps {graph}; their phase markers' runs "
+        f"{ {k: trace[k] for k in driver} }; the valve HalfCheetah "
         f"{autodiff}; the recorded episodes {video}; the compare_icem_cem row {quality}; the "
         f"ensemble diagnosis {diagnosis}; the sharded planner {sharded}")
 
@@ -3158,6 +3265,18 @@ def main() -> int:
         "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "trace_mark",
+        "route": "cuda",
+        "source": "icem_torch/csrc/trace_mark.cu",
+        "replaces": None,
+        "launches": trace["markers"],
+        "max_abs_err": None,
+        "ms": None,
+        "plain_ms": None,
+        "bound_ms": None,
+        "bound_by": None,
         "library_ms": None,
     }]}))
     log(card)

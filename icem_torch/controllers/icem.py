@@ -39,6 +39,7 @@ from icem_torch.device import indexed, on_device, resolve_device
 from icem_torch.models.base import batch_tree, rollout_open_loop, trajectory_cost, unbatch_tree
 from icem_torch.ops.colored_noise import sample_colored_action_noise
 from icem_torch.runtime.graphs import Compiled
+from icem_torch.runtime.metrics import mark_step, phase, span
 from icem_torch.runtime.seeding import Seeding
 from icem_torch.runtime.video import VideoRecorder
 
@@ -232,6 +233,7 @@ def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
     """
     if model_params is not None:
         predict_fn = partial(predict_fn, model_params)
+    mark_step(pstate.mean.device)
     if cfg.cem_loop == "scan":
         return _plan_step_scan(cfg, predict_fn, cost_fn, pstate, obs, model_state)
     mean, std = pstate.mean, pstate.std
@@ -246,48 +248,53 @@ def plan_step(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState, obs,
     best_action_seq = best_cost = best_last_obs = None
 
     for i, n_i in enumerate(cfg.population_schedule):
-        fresh = sample_action_sequences(cfg, gen, mean, std, n_i)
-        if cfg.use_mean_actions and i == last_iter:
-            fresh[0] = mean
+        with phase("plan.noise", device):
+            fresh = sample_action_sequences(cfg, gen, mean, std, n_i)
+            if cfg.use_mean_actions and i == last_iter:
+                fresh[0] = mean
 
-        # -- assemble simulation set -------------------------------------
-        if i == 0 and cfg.shift_elites_over_time and E > 0:
-            # elites' actions shifted one step + fresh last action; masked
-            # out until elites exist
-            last_step = sample_action_sequences(cfg, gen, mean, std, E)[:, -1:, :]
-            shifted = torch.cat([elite_actions[:E, 1:, :], last_step], dim=1)
-            sim_actions = torch.cat([fresh, shifted], dim=0)
-            sim_valid = torch.cat([torch.ones(n_i, dtype=torch.bool, device=device),
-                                   torch.full((E,), have_elites, device=device)])
-        else:
-            sim_actions = fresh
-            sim_valid = torch.ones(n_i, dtype=torch.bool, device=device)
+            # -- assemble simulation set ---------------------------------
+            if i == 0 and cfg.shift_elites_over_time and E > 0:
+                # elites' actions shifted one step + fresh last action;
+                # masked out until elites exist
+                last_step = sample_action_sequences(cfg, gen, mean, std, E)[:, -1:, :]
+                shifted = torch.cat([elite_actions[:E, 1:, :], last_step], dim=1)
+                sim_actions = torch.cat([fresh, shifted], dim=0)
+                sim_valid = torch.cat([torch.ones(n_i, dtype=torch.bool, device=device),
+                                       torch.full((E,), have_elites, device=device)])
+            else:
+                sim_actions = fresh
+                sim_valid = torch.ones(n_i, dtype=torch.bool, device=device)
 
         # -- simulate ------------------------------------------------------
-        traj = rollout_open_loop(predict_fn, model_state, obs, sim_actions)
-        sim_costs = trajectory_cost(cost_fn, traj, cfg.cost_along_trajectory,
-                                    cfg.use_env_reward_as_cost)
-        sim_last_obs = traj.next_observations[-1]  # [p, obs_dim]
+        with phase("plan.rollout", device):
+            traj = rollout_open_loop(predict_fn, model_state, obs, sim_actions)
 
-        # -- candidates: fresh(+shifted) plus kept elites (cost reuse) ----
-        if i > 0 and cfg.keep_previous_elites and E > 0:
-            cand_actions = torch.cat([sim_actions, elite_actions[:E]], dim=0)
-            cand_costs = torch.cat([sim_costs, elite_costs[:E]], dim=0)
-            cand_last_obs = torch.cat([sim_last_obs, elite_last_obs[:E]], dim=0)
-            cand_valid = torch.cat([sim_valid, torch.ones(E, dtype=torch.bool, device=device)])
-        else:
-            cand_actions, cand_costs = sim_actions, sim_costs
-            cand_last_obs, cand_valid = sim_last_obs, sim_valid
+        with phase("plan.select", device):
+            sim_costs = trajectory_cost(cost_fn, traj, cfg.cost_along_trajectory,
+                                        cfg.use_env_reward_as_cost)
+            sim_last_obs = traj.next_observations[-1]  # [p, obs_dim]
 
-        # invalid rows AND non-finite costs rank last
-        cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
-                                 cand_costs, float("inf"))
+            # -- candidates: fresh(+shifted) plus kept elites (cost reuse) -
+            if i > 0 and cfg.keep_previous_elites and E > 0:
+                cand_actions = torch.cat([sim_actions, elite_actions[:E]], dim=0)
+                cand_costs = torch.cat([sim_costs, elite_costs[:E]], dim=0)
+                cand_last_obs = torch.cat([sim_last_obs, elite_last_obs[:E]], dim=0)
+                cand_valid = torch.cat([sim_valid,
+                                        torch.ones(E, dtype=torch.bool, device=device)])
+            else:
+                cand_actions, cand_costs = sim_actions, sim_costs
+                cand_last_obs, cand_valid = sim_last_obs, sim_valid
 
-        best_action_seq, best_cost, best_last_obs = best_candidate(
-            cand_actions, cand_costs, cand_last_obs)
+            # invalid rows AND non-finite costs rank last
+            cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
+                                     cand_costs, float("inf"))
 
-        mean, std, elite_actions, elite_costs, elite_last_obs = _refit(
-            cfg, mean, std, cand_actions, cand_costs, cand_last_obs)
+            best_action_seq, best_cost, best_last_obs = best_candidate(
+                cand_actions, cand_costs, cand_last_obs)
+
+            mean, std, elite_actions, elite_costs, elite_last_obs = _refit(
+                cfg, mean, std, cand_actions, cand_costs, cand_last_obs)
         have_elites = True
 
     # execute the best trajectory's FIRST action, not the mean
@@ -345,46 +352,50 @@ def _plan_step_scan(cfg: ICemConfig, predict_fn, cost_fn, pstate: ICemState,
 
     for i, n_i in enumerate(schedule):
         first = i == 0
-        fresh = sample_action_sequences(cfg, gen, mean, std, n0)
-        if cfg.use_mean_actions and i == last_iter:
-            fresh[0] = mean
-        fresh_valid = fresh_arange < n_i
+        with phase("plan.noise", device):
+            fresh = sample_action_sequences(cfg, gen, mean, std, n0)
+            if cfg.use_mean_actions and i == last_iter:
+                fresh[0] = mean
+            fresh_valid = fresh_arange < n_i
 
-        if use_tail:
-            last_step = sample_action_sequences(cfg, gen, mean, std, E)[:, -1:, :]
-            if first:
-                tail_actions = torch.cat([e_a[:E, 1:, :], last_step], dim=1)
+            if use_tail:
+                last_step = sample_action_sequences(cfg, gen, mean, std, E)[:, -1:, :]
+                if first:
+                    tail_actions = torch.cat([e_a[:E, 1:, :], last_step], dim=1)
+                else:
+                    tail_actions = e_a[:E]
+                sim_actions = torch.cat([fresh, tail_actions], dim=0)
             else:
-                tail_actions = e_a[:E]
-            sim_actions = torch.cat([fresh, tail_actions], dim=0)
-        else:
-            sim_actions = fresh
+                sim_actions = fresh
 
-        traj = rollout_open_loop(predict_fn, model_state, obs, sim_actions)
-        sim_costs = trajectory_cost(cost_fn, traj, cfg.cost_along_trajectory,
-                                    cfg.use_env_reward_as_cost)
-        sim_last_obs = traj.next_observations[-1]
+        with phase("plan.rollout", device):
+            traj = rollout_open_loop(predict_fn, model_state, obs, sim_actions)
 
-        if use_tail:
-            # cost reuse at i > 0: stored elite costs, not the re-simulated ones
-            tail_c = sim_costs[n0:] if first else e_c[:E]
-            tail_o = sim_last_obs[n0:] if first else e_o[:E]
-            cand_costs = torch.cat([sim_costs[:n0], tail_c])
-            cand_last_obs = torch.cat([sim_last_obs[:n0], tail_o])
-            tail_on = cfg.shift_elites_over_time if first else cfg.keep_previous_elites
-            tail_valid = torch.full((E,), bool(tail_on and have), device=device)
-            cand_valid = torch.cat([fresh_valid, tail_valid])
-        else:
-            cand_costs, cand_last_obs, cand_valid = sim_costs, sim_last_obs, fresh_valid
-        cand_actions = sim_actions
+        with phase("plan.select", device):
+            sim_costs = trajectory_cost(cost_fn, traj, cfg.cost_along_trajectory,
+                                        cfg.use_env_reward_as_cost)
+            sim_last_obs = traj.next_observations[-1]
 
-        cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
-                                 cand_costs, float("inf"))
-        best_action_seq, best_cost, best_last_obs = best_candidate(
-            cand_actions, cand_costs, cand_last_obs)
+            if use_tail:
+                # cost reuse at i > 0: stored elite costs, not the re-simulated ones
+                tail_c = sim_costs[n0:] if first else e_c[:E]
+                tail_o = sim_last_obs[n0:] if first else e_o[:E]
+                cand_costs = torch.cat([sim_costs[:n0], tail_c])
+                cand_last_obs = torch.cat([sim_last_obs[:n0], tail_o])
+                tail_on = cfg.shift_elites_over_time if first else cfg.keep_previous_elites
+                tail_valid = torch.full((E,), bool(tail_on and have), device=device)
+                cand_valid = torch.cat([fresh_valid, tail_valid])
+            else:
+                cand_costs, cand_last_obs, cand_valid = sim_costs, sim_last_obs, fresh_valid
+            cand_actions = sim_actions
 
-        mean, std, e_a, e_c, e_o = _refit(cfg, mean, std, cand_actions, cand_costs,
-                                          cand_last_obs)
+            cand_costs = torch.where(cand_valid & torch.isfinite(cand_costs),
+                                     cand_costs, float("inf"))
+            best_action_seq, best_cost, best_last_obs = best_candidate(
+                cand_actions, cand_costs, cand_last_obs)
+
+            mean, std, e_a, e_c, e_o = _refit(cfg, mean, std, cand_actions, cand_costs,
+                                              cand_last_obs)
         have = True
 
     executed = best_action_seq[0]
@@ -576,20 +587,23 @@ class MpcICem(ModelConsistencyMixin, PlannerCheckpointMixin, ShardedPlannerMixin
     def get_action(self, obs, state=None, mode="train"):
         if not self.was_reset:
             raise AttributeError("beginning_of_rollout() needs to be called before")
-        obs = self._as_tensor(obs)
-        state = None if state is None else self._as_tensor(state)
-        if self.verbose:
-            self.check_model_consistency(state)
-        self._model_state = self.forward_model.got_actual_observation_and_env_state(
-            observation=obs, env_state=state, model_state=self._model_state)
-        result = self._plan_impl()(self._pstate, obs, self._model_state,
-                                   self.live_model_params)
-        self._pstate = result.state
-        self.last_expected_cost = result.expected_cost
-        if self.do_visualize_plan:
-            self.visualize_plan(obs, state, result)
-        self._after_action(obs, result.action)
-        return result.action.cpu().numpy()
+        with span("icem.get_action"):
+            obs = self._as_tensor(obs)
+            state = None if state is None else self._as_tensor(state)
+            if self.verbose:
+                self.check_model_consistency(state)
+            self._model_state = self.forward_model.got_actual_observation_and_env_state(
+                observation=obs, env_state=state, model_state=self._model_state)
+            result = self._plan_impl()(self._pstate, obs, self._model_state,
+                                       self.live_model_params)
+            self._pstate = result.state
+            self.last_expected_cost = result.expected_cost
+            if self.do_visualize_plan:
+                self.visualize_plan(obs, state, result)
+            self._after_action(obs, result.action)
+            with span("icem.readback.action"):
+                action = result.action.cpu().numpy()
+            return action
 
     def end_of_rollout(self, total_time, total_return, mode):
         pass

@@ -22,9 +22,7 @@ import torch
 
 from icem_torch.envs.physics import batched
 from icem_torch.envs.physics.planar import PlanarModel
-
-# Kernel launches made by rollout_planar since the count was last set to 0.
-LAUNCHES = 0
+from icem_torch.runtime import metrics
 
 
 def kernel_shape(model: PlanarModel) -> tuple:
@@ -206,9 +204,10 @@ def launch_bound(kernel, Q, QD, ACTS):
 
 
 def _launch(model: PlanarModel, Q, QD, ACTS):
-    global LAUNCHES
+    """One launch, counted as ``b1.launches`` and its rows as ``b1.rows``."""
     out = launch_bound(_launcher(model), Q, QD, ACTS)
-    LAUNCHES += 1
+    metrics.count("b1.launches")
+    metrics.count("b1.rows", ACTS.shape[0])
     return out
 
 

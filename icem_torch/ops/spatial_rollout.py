@@ -25,9 +25,7 @@ import torch
 
 from icem_torch.envs.physics import spatial_batched as sb
 from icem_torch.envs.physics.spatial import SpatialModel
-
-# Kernel launches made by rollout_spatial since the count was last set to 0.
-LAUNCHES = 0
+from icem_torch.runtime import metrics
 
 
 def kernel_shape(model: SpatialModel) -> tuple:
@@ -269,9 +267,10 @@ def launch_bound(kernel: BoundKernel, Q, QD, ACTS):
 
 
 def _launch(model: SpatialModel, Q, QD, ACTS):
-    global LAUNCHES
+    """One launch, counted as ``b2.launches`` and its rows as ``b2.rows``."""
     out = launch_bound(_launcher(model), Q, QD, ACTS)
-    LAUNCHES += 1
+    metrics.count("b2.launches")
+    metrics.count("b2.rows", ACTS.shape[0])
     return out
 
 

@@ -34,9 +34,19 @@ and replays it:
 - Outputs are copied out of the graph's memory after each replay, one copy
   per dtype, so the next replay does not overwrite them. Outputs that are
   not tensors are the capture's: they depend on the static leaves alone.
-- Launch counts: a kernel's ``LAUNCHES`` counter counts Python calls, which a
-  replay does not make. Each graph records what its capture counted and adds
-  it on every replay, so the counts equal an eager run's.
+- Counters (``runtime/metrics.py``): the kernels count their launches and
+  rows in Python calls, which a replay does not make. Each graph records
+  what its capture counted and adds it on every replay, so the counts equal
+  an eager run's. ``graphs.captures``, ``graphs.capture_s`` (warm-up
+  included) and ``graphs.replays`` count the graphs' own activity.
+- Phase markers: a capture keeps the graph (``keep_graph=True``), and the
+  marker kernels the step launched (``metrics.phase``) stay in it as
+  disabled nodes. A replay enables them while tracing is active and
+  disables them once it is not: no recapture, no new key.
+- The garbage collector is paused during a capture (``_collector_paused``):
+  CUDA refuses to destroy a kept graph while a stream captures.
+- Spans: ``graphs.capture:<name>`` around a capture, ``graphs.replay:<name>``
+  around every call (copy-in, replay, output copies).
 
 On the CPU there is no graph: the same buffer plumbing (copy in, call,
 outputs out) calls ``fn`` on the static buffers. ``disable_graphs()``, the
@@ -48,6 +58,7 @@ capture runs inline, as a jitted function does inside a jitted one.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Optional
@@ -55,12 +66,11 @@ from typing import Callable, Optional
 import torch
 from torch.utils import _pytree as pytree
 
-# graph activity since the last reset, read by chip_smoke.py as it reads the
-# kernels' LAUNCHES: captures, seconds spent capturing (warm-up included)
-# and replays
-CAPTURES = 0
+from icem_torch.runtime import metrics
+
+# seconds spent capturing (warm-up included): the store's graphs.capture_s,
+# kept under this name for readers of the module value
 CAPTURE_SECONDS = 0.0
-REPLAYS = 0
 
 _local = threading.local()
 
@@ -91,19 +101,19 @@ def _inline():
         _local.inline -= 1
 
 
-def _launch_counters() -> tuple:
-    from icem_torch.ops import planar_rollout, spatial_rollout
-
-    return planar_rollout, spatial_rollout
-
-
-def _launch_counts() -> tuple:
-    return tuple(m.LAUNCHES for m in _launch_counters())
-
-
-def _set_launch_counts(counts: tuple):
-    for m, n in zip(_launch_counters(), counts):
-        m.LAUNCHES = n
+@contextlib.contextmanager
+def _collector_paused():
+    """No automatic cyclic garbage collection inside. A controller and its
+    compiled steps form a reference cycle, so the collector frees their
+    graphs at whatever allocation comes next; freeing a kept graph while a
+    stream captures is an operation CUDA refuses, and the capture fails."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
 
 
 def _pack(out):
@@ -155,7 +165,9 @@ class _Entry:
         self.graph = None                 # the CUDA graph (None on the CPU)
         self.flats = None                 # its packed outputs
         self.layout = None
-        self.launches = ()                # kernel launches per replay
+        self.counts = {}                  # counter growth per replay
+        self.markers = None               # the graph's marker nodes, if any
+        self.markers_on = False
 
 
 class Compiled:
@@ -176,6 +188,8 @@ class Compiled:
         self.name = name or getattr(fn, "__qualname__", None) or repr(fn)
         self._entries: dict = {}
         self._pool = None
+        self._replay_span = f"graphs.replay:{self.name}"
+        self._capture_span = f"graphs.capture:{self.name}"
 
     @property
     def num_keys(self) -> int:
@@ -246,11 +260,18 @@ class Compiled:
         return entry
 
     def _capture(self, entry: _Entry, generators, device):
-        """Warm up, then capture ``fn`` on the entry's buffers. The launch
-        counts are left as they were: replays add the capture's."""
-        global CAPTURES, CAPTURE_SECONDS
+        """Warm up, then capture ``fn`` on the entry's buffers. The counters
+        are left as they were: replays add the capture's."""
+        global CAPTURE_SECONDS
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        with metrics.span(self._capture_span):
+            self._capture_graph(entry, generators, device)
+        metrics.count("graphs.captures")
+        metrics.count("graphs.capture_s", time.perf_counter() - t0)
+        CAPTURE_SECONDS = metrics.counter("graphs.capture_s")
+
+    def _capture_graph(self, entry: _Entry, generators, device):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         for g in entry.owned + entry.closure_generators:
             graph.register_generator_state(g)
         index = device.index if device.index is not None else torch.cuda.current_device()
@@ -258,7 +279,7 @@ class Compiled:
                 for g in entry.closure_generators + [torch.cuda.default_generators[index]]]
         for own, g in zip(entry.owned, generators):
             own.set_state(g.get_state())
-        counts = _launch_counts()
+        before = metrics.counters()
         try:
             stream = torch.cuda.current_stream(device)
             side = torch.cuda.Stream(device)
@@ -270,47 +291,51 @@ class Compiled:
             # replay draws what an eager call would
             for g, state in kept:
                 g.set_state(state)
-            warm = _launch_counts()
+            warm = metrics.counters()
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             try:
-                with _inline(), torch.cuda.graph(graph, pool=self._pool,
-                                                 capture_error_mode="thread_local"):
+                with _inline(), _collector_paused(), metrics.capturing() as cap, \
+                        torch.cuda.graph(graph, pool=self._pool,
+                                         capture_error_mode="thread_local"):
                     flats, layout = _pack(self.fn(*entry.args))
             except RuntimeError as e:
                 raise RuntimeError(
                     f"CUDA graph capture of {self.name} failed: {e}. A captured step may "
                     f"not wait for the card (Tensor.item, a 0-d index tensor, a copy from "
                     f"the host); disable_graphs() runs it eagerly") from e
-            captured = _launch_counts()
+            captured = metrics.counters()
         finally:
-            _set_launch_counts(counts)
-        entry.launches = tuple(c - w for c, w in zip(captured, warm))
-        if entry.launches != tuple(w - c for w, c in zip(warm, counts)):
-            raise RuntimeError(f"{self.name}: the capture launched other kernels than the "
-                               f"warm-up ({entry.launches} against "
-                               f"{tuple(w - c for w, c in zip(warm, counts))})")
+            for k, n in metrics.since(before).items():
+                metrics.count(k, -n)
+        entry.counts = metrics.since(warm, captured)
+        if entry.counts != metrics.since(before, warm):
+            raise RuntimeError(f"{self.name}: the capture counted otherwise than the "
+                               f"warm-up ({entry.counts} against {metrics.since(before, warm)})")
+        graph.instantiate()
+        entry.markers = metrics.graph_markers(graph, cap)
         entry.graph, entry.flats, entry.layout = graph, flats, layout
-        CAPTURES += 1
-        CAPTURE_SECONDS += time.perf_counter() - t0
 
     # -- every call ---------------------------------------------------------
     def _run(self, entry: _Entry, tensors, generators):
-        global REPLAYS
-        for own, g in zip(entry.owned, generators):
-            own.set_state(g.get_state())
-        if entry.inputs:
-            torch._foreach_copy_(entry.inputs, tensors)
-        if entry.graph is None:
-            flats, layout = _pack(self.fn(*entry.args))
-        else:
-            entry.graph.replay()
-            REPLAYS += 1
-            if any(entry.launches):
-                _set_launch_counts(tuple(c + n for c, n in zip(_launch_counts(),
-                                                               entry.launches)))
-            flats, layout = [f.clone() for f in entry.flats], entry.layout
-        for own, g in zip(entry.owned, generators):
-            g.set_state(own.get_state())
-        return _unpack(flats, layout, {id(own): g for own, g in zip(entry.owned, generators)})
+        with metrics.span(self._replay_span):
+            for own, g in zip(entry.owned, generators):
+                own.set_state(g.get_state())
+            if entry.inputs:
+                torch._foreach_copy_(entry.inputs, tensors)
+            if entry.graph is None:
+                flats, layout = _pack(self.fn(*entry.args))
+            else:
+                if entry.markers is not None and entry.markers_on != metrics.active():
+                    entry.markers_on = not entry.markers_on
+                    metrics.set_graph_markers(entry.graph, entry.markers, entry.markers_on)
+                entry.graph.replay()
+                metrics.count("graphs.replays")
+                for k, n in entry.counts.items():
+                    metrics.count(k, n)
+                flats, layout = [f.clone() for f in entry.flats], entry.layout
+            for own, g in zip(entry.owned, generators):
+                g.set_state(own.get_state())
+            return _unpack(flats, layout,
+                           {id(own): g for own, g in zip(entry.owned, generators)})
 

@@ -29,6 +29,11 @@ Termination semantics, the same on both paths: a non-finite next
 observation or state ends the episode and its own transition is invalid; a
 NaN reward on that step is zeroed; ``only_final_reward`` keeps the last
 valid reward only.
+
+Tracing (``runtime/metrics.py``): the host loop spans each control step
+(``rollout.step``) and each blocking read in it
+(``rollout.readback.<site>``); the device control step closes the
+``env.step`` phase with a marker.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 from icem_torch.device import resolve_device
 from icem_torch.runtime.buffer import Rollout, RolloutBuffer
 from icem_torch.runtime.graphs import Compiled
+from icem_torch.runtime.metrics import phase, span
 from icem_torch.runtime.seeding import Seeding
 from icem_torch.runtime.video import VideoRecorder
 
@@ -136,28 +142,35 @@ class RolloutManager:
         successes = []
         start_time = time.time()
         for t in range(self.task_horizon):
-            if render or recorder is not None:
-                frame = env.render_frame(state)
-                if recorder is not None and frame is not None:
-                    recorder.append(frame)
-            env_state = state if self.use_env_states else None
-            action = policy.get_action(obs, env_state, mode=mode)
-            action_t = torch.as_tensor(action, dtype=torch.float32, device=self.device)
-            next_state, next_obs, reward, done = self._env_step(state, action_t)
-            next_obs_np = next_obs.cpu().numpy()
-            if not np.all(np.isfinite(next_obs_np)):
-                # physics blow-up containment: end the episode here rather
-                # than propagate NaNs (reference rollout_utils.py:189-194)
-                print(f"Warning: non-finite observation at step {t}; truncating episode")
-                break
-            succ = env.is_success(obs, action_t, next_obs)
-            if succ is not None:
-                successes.append(float(succ))
-            transitions.append((obs.cpu().numpy(), next_obs_np, np.asarray(action),
-                                float(reward), float(done)))
-            state, obs = next_state, next_obs
-            if float(done):
-                break
+            with span("rollout.step"):
+                if render or recorder is not None:
+                    frame = env.render_frame(state)
+                    if recorder is not None and frame is not None:
+                        recorder.append(frame)
+                env_state = state if self.use_env_states else None
+                action = policy.get_action(obs, env_state, mode=mode)
+                action_t = torch.as_tensor(action, dtype=torch.float32, device=self.device)
+                next_state, next_obs, reward, done = self._env_step(state, action_t)
+                with span("rollout.readback.next_obs"):
+                    next_obs_np = next_obs.cpu().numpy()
+                if not np.all(np.isfinite(next_obs_np)):
+                    # physics blow-up containment: end the episode here rather
+                    # than propagate NaNs (reference rollout_utils.py:189-194)
+                    print(f"Warning: non-finite observation at step {t}; truncating episode")
+                    break
+                succ = env.is_success(obs, action_t, next_obs)
+                if succ is not None:
+                    successes.append(float(succ))
+                with span("rollout.readback.obs"):
+                    obs_np = obs.cpu().numpy()
+                with span("rollout.readback.reward_done"):
+                    reward_done = float(reward), float(done)
+                transitions.append((obs_np, next_obs_np, np.asarray(action), *reward_done))
+                state, obs = next_state, next_obs
+                with span("rollout.readback.done"):
+                    ended = float(done)
+                if ended:
+                    break
 
         if recorder is not None:
             path = recorder.close()
@@ -212,24 +225,26 @@ class RolloutManager:
 
         def control_step(pstate, state, obs, done_before, model_params):
             action, pstate = plan(pstate, obs, state if use_env_states else None, model_params)
-            state2, obs2, rew, done = env.step(state, action)
-            # a non-finite next observation or state is terminal AND its own
-            # transition is invalid (the host path breaks before appending it)
-            blown = ~(torch.isfinite(obs2).all() & torch.isfinite(state2).all())
-            blown_f = blown.to(torch.float32)
-            # freeze after termination or blow-up at the last finite state
-            dead = (done_before > 0) | blown
-            keep = (1.0 - done_before) * (1.0 - blown_f)
-            state2 = torch.where(dead, state, state2)
-            obs2 = torch.where(dead, obs, obs2)
-            zero = torch.zeros((), device=obs.device)
-            # zeroed, not multiplied by 0: the blown step's reward may be NaN
-            rew = torch.where(keep > 0, rew, zero)
-            succ = env.is_success(obs, action, obs2)
-            succ = zero if succ is None else succ
-            done_after = torch.maximum(done_before, torch.maximum(done, blown_f))
-            # one row: obs, next obs, action, reward, done, keep, success
-            row = torch.cat([obs, obs2, action, torch.stack([rew, done_after, keep, succ])])
+            with phase("env.step", obs.device):
+                state2, obs2, rew, done = env.step(state, action)
+                # a non-finite next observation or state is terminal AND its
+                # own transition is invalid (the host path breaks before
+                # appending it)
+                blown = ~(torch.isfinite(obs2).all() & torch.isfinite(state2).all())
+                blown_f = blown.to(torch.float32)
+                # freeze after termination or blow-up at the last finite state
+                dead = (done_before > 0) | blown
+                keep = (1.0 - done_before) * (1.0 - blown_f)
+                state2 = torch.where(dead, state, state2)
+                obs2 = torch.where(dead, obs, obs2)
+                zero = torch.zeros((), device=obs.device)
+                # zeroed, not multiplied by 0: the blown step's reward may be NaN
+                rew = torch.where(keep > 0, rew, zero)
+                succ = env.is_success(obs, action, obs2)
+                succ = zero if succ is None else succ
+                done_after = torch.maximum(done_before, torch.maximum(done, blown_f))
+                # one row: obs, next obs, action, reward, done, keep, success
+                row = torch.cat([obs, obs2, action, torch.stack([rew, done_after, keep, succ])])
             return pstate, state2, obs2, done_after, row
 
         if getattr(policy, "plans_eagerly", False):

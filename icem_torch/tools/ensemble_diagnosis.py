@@ -310,7 +310,7 @@ def diagnose(n_random: int = N_RANDOM, n_expert: int = N_EXPERT,
 
 def main(argv=None) -> int:
     from icem_torch.device import resolve_device
-    from icem_torch.ops import planar_rollout
+    from icem_torch.runtime import metrics
     from icem_torch.tools.quality_table import card_name
 
     ap = argparse.ArgumentParser(prog="python -m icem_torch.tools.ensemble_diagnosis",
@@ -325,12 +325,12 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)  # no card and no --device cpu: raise here
     anchor = read_anchor(args.quality) if args.quality else None
 
-    planar_rollout.LAUNCHES = 0
+    before = metrics.counters()
     out = diagnose(device=device, anchor=anchor)
     out["card"] = card_name(device)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
-    print(f"B1 launches: {planar_rollout.LAUNCHES}", file=sys.stderr)
+    print(f"B1 launches: {metrics.since(before).get('b1.launches', 0)}", file=sys.stderr)
     print(json.dumps(out))
     return 0
 

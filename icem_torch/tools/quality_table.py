@@ -47,8 +47,8 @@ Departures from the JAX script, each deliberate:
     cached yet and the CUDA graph captures; the steady rate,
     ``env_steps_per_s``, comes from the later iterations.
 
-Each seed's interpreter also prints its B1 / B2 launches and its unrounded
-per-iteration returns (``QUALITY_RUN``); ``run_seed`` returns them.
+Each seed's interpreter also prints its B1 / B2 launches and rows and its
+unrounded per-iteration returns (``QUALITY_RUN``); ``run_seed`` returns them.
 """
 
 from __future__ import annotations
@@ -220,17 +220,20 @@ def aggregate(rows):
 def seed_entry(name: str, seed: int, device=None, eager: bool = False, runs=None):
     """The body of one seed's interpreter: run it under a temporary
     directory (or under ``runs``, kept) and print the row and the run's
-    launches and returns."""
-    from icem_torch.ops import planar_rollout, spatial_rollout
+    launches, rows and returns."""
+    from icem_torch.runtime import metrics
 
-    planar_rollout.LAUNCHES = spatial_rollout.LAUNCHES = 0
+    before = metrics.counters()
     path = os.path.join(SETTINGS_DIR, name + ".json")
     if runs is not None:
         _, row, info = run_config(path, runs, seed, device=device, eager=eager)
     else:
         with tempfile.TemporaryDirectory() as out_root:
             _, row, info = run_config(path, out_root, seed, device=device, eager=eager)
-    run = {"launches": {"planar": planar_rollout.LAUNCHES, "spatial": spatial_rollout.LAUNCHES},
+    grown = metrics.since(before)
+    run = {"launches": {"planar": grown.get("b1.launches", 0),
+                        "spatial": grown.get("b2.launches", 0)},
+           "rows": {"planar": grown.get("b1.rows", 0), "spatial": grown.get("b2.rows", 0)},
            "train_mean_return": [float(r) for r in info["train_mean_return"]]}
     print(ROW_MARK + json.dumps(row), flush=True)
     print(RUN_MARK + json.dumps(run), flush=True)

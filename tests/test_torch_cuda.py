@@ -18,6 +18,7 @@ from icem_torch.envs.physics.planar import PlanarModel
 from icem_torch.envs.physics.spatial import SpatialModel
 from icem_torch.ops import planar_rollout as pr
 from icem_torch.ops import spatial_rollout as sr
+from icem_torch.runtime import metrics
 
 pytestmark = pytest.mark.cuda
 
@@ -41,10 +42,10 @@ def _inputs(P, h, device, seed=0):
 def test_kernel_matches_plain_version(cuda, P):
     model = make_cheetah_model(dt=0.05, n_substeps=20)
     Q, QD, A = _inputs(P, 3, cuda)
-    before = pr.LAUNCHES
+    before = metrics.counter("b1.launches")
     qs, qds = pr.rollout_planar(model, Q, QD, A)
     torch.cuda.synchronize()
-    assert pr.LAUNCHES == before + 1
+    assert metrics.counter("b1.launches") == before + 1
     rq, rqd = pr.rollout_planar_reference(model, Q, QD, A)
     # tests/test_pallas_rollout.py's tolerance over the first three steps
     torch.testing.assert_close(qs, rq, atol=1e-3, rtol=0)
@@ -66,9 +67,9 @@ def test_kernel_reads_strided_rows(cuda):
 def test_env_step_is_one_launch(cuda):
     env = HalfCheetah(exclude_current_positions_from_observation=True)
     state = env.init_state(torch.Generator(device=cuda).manual_seed(0))
-    before = pr.LAUNCHES
+    before = metrics.counter("b1.launches")
     new_state, obs, reward, done = env.step(state, torch.zeros(6, device=cuda))
-    assert pr.LAUNCHES == before + 1
+    assert metrics.counter("b1.launches") == before + 1
     assert new_state.device.type == "cuda" and tuple(obs.shape) == (17,)
 
 
@@ -113,10 +114,10 @@ def _planar_inputs(env, P, h, device, seed=0):
 def test_every_planar_shape_matches_plain_version(cuda, name, P):
     env = env_from_string(name, **PLANAR[name])
     Q, QD, A = _planar_inputs(env, P, 2, cuda)
-    before = pr.LAUNCHES
+    before = metrics.counter("b1.launches")
     qs, qds = pr.rollout_planar(env.model, Q, QD, A)
     torch.cuda.synchronize()
-    assert pr.LAUNCHES == before + 1
+    assert metrics.counter("b1.launches") == before + 1
     rq, _ = pr.rollout_planar_reference(env.model, Q, QD, A)
     assert bool(torch.isfinite(qs).all() and torch.isfinite(qds).all())
     torch.testing.assert_close(qs, rq, atol=1e-3, rtol=0)
@@ -129,9 +130,9 @@ def test_every_planar_shape_matches_plain_version(cuda, name, P):
 def test_every_planar_env_step_is_one_launch(cuda, name):
     env = env_from_string(name, **PLANAR[name])
     state = env.init_state(torch.Generator(device=cuda).manual_seed(0))
-    before = pr.LAUNCHES
+    before = metrics.counter("b1.launches")
     new_state, obs, reward, done = env.step(state, torch.zeros(env.action_dim, device=cuda))
-    assert pr.LAUNCHES == before + 1
+    assert metrics.counter("b1.launches") == before + 1
     assert new_state.device.type == "cuda" and tuple(obs.shape) == (env.obs_dim,)
 
 
@@ -159,10 +160,10 @@ def _spatial_inputs(env, P, h, device, seed=0):
 def test_spatial_kernel_matches_plain_version(cuda, name, P):
     env = SPATIAL[name]()
     Q, QD, A = _spatial_inputs(env, P, 3, cuda)
-    before = sr.LAUNCHES
+    before = metrics.counter("b2.launches")
     qs, qds = sr.rollout_spatial(env.model, Q, QD, A)
     torch.cuda.synchronize()
-    assert sr.LAUNCHES == before + 1
+    assert metrics.counter("b2.launches") == before + 1
     rq, _ = sr.rollout_spatial_reference(env.model, Q, QD, A)
     assert bool(torch.isfinite(qs).all() and torch.isfinite(qds).all())
     # tests/test_pallas_rollout.py's spatial bulk rule over three steps
@@ -183,9 +184,9 @@ def test_spatial_kernel_reads_strided_rows(cuda, name):
 def test_spatial_env_step_is_one_launch(cuda):
     env = Ant3D(exclude_current_positions_from_observation=False)
     state = env.init_state(torch.Generator(device=cuda).manual_seed(0))
-    before = sr.LAUNCHES
+    before = metrics.counter("b2.launches")
     new_state, obs, reward, done = env.step(state, torch.zeros(8, device=cuda))
-    assert sr.LAUNCHES == before + 1
+    assert metrics.counter("b2.launches") == before + 1
     assert new_state.device.type == "cuda" and tuple(obs.shape) == (28,)
 
 
@@ -208,6 +209,12 @@ def test_spatial_kernel_raises_on_what_it_does_not_take(cuda):
 
 # -- the compiled step: CUDA graphs against eager dispatch ---------------------
 
+def _launches(before: dict) -> tuple:
+    """B1's and B2's launches since the counters' snapshot ``before``."""
+    grown = metrics.since(before)
+    return grown.get("b1.launches", 0), grown.get("b2.launches", 0)
+
+
 def _icem_steps(env, cuda, steps: int, eager: bool):
     """``steps`` MpcICem control steps on ``env`` from one seeded start:
     (actions, means, stds, the kernels' launches, the plan step's graphs)."""
@@ -222,7 +229,7 @@ def _icem_steps(env, cuda, steps: int, eager: bool):
                    action_sampler_params=dict(elites_size=8, opt_iterations=3))
     state = env.init_state(torch.Generator(device=cuda).manual_seed(0))
     obs = env.observation(state)
-    pr.LAUNCHES = sr.LAUNCHES = 0
+    before = metrics.counters()
     out = []
     with disable_graphs() if eager else contextlib.nullcontext():
         ctrl.beginning_of_rollout(observation=obs, state=state)
@@ -230,7 +237,7 @@ def _icem_steps(env, cuda, steps: int, eager: bool):
             a = ctrl.get_action(obs, state)
             out.append((a, ctrl._pstate.mean.cpu().numpy(), ctrl._pstate.std.cpu().numpy()))
             state, obs, _, _ = env.step(state, torch.as_tensor(a, device=cuda))
-    return out, (pr.LAUNCHES, sr.LAUNCHES), ctrl._plan_impl().num_keys
+    return out, _launches(before), ctrl._plan_impl().num_keys
 
 
 @pytest.mark.parametrize("loop", ["unrolled", "scan"])
@@ -243,9 +250,10 @@ def test_compiled_plan_steps_give_the_eager_bits_and_launches(cuda, loop):
     env = (HalfCheetah(exclude_current_positions_from_observation=True) if loop == "unrolled"
            else Ant3D(exclude_current_positions_from_observation=False))
     eager, eager_launches, _ = _icem_steps(env, cuda, 6, eager=True)
-    replays = graphs.REPLAYS
+    replays = metrics.counter("graphs.replays")
     graph, graph_launches, keys = _icem_steps(env, cuda, 6, eager=False)
-    assert graphs.REPLAYS - replays == 6 and keys == 2  # have_elites False, then True
+    # have_elites False, then True
+    assert metrics.counter("graphs.replays") - replays == 6 and keys == 2
     assert graph_launches == eager_launches and sum(eager_launches) == 4 * 6
     for (a, m, s), (ga, gm, gs) in zip(eager, graph):
         np.testing.assert_array_equal(ga, a)
@@ -273,6 +281,52 @@ def test_a_host_wait_in_a_captured_step_raises(cuda, monkeypatch):
     # first host wait, and no eager call followed
     assert len(calls) == 3
     assert float(torch.ones(2, device=cuda).sum()) == 2.0  # the card works on
+
+
+def test_a_graph_the_collector_frees_during_a_capture_leaves_it_whole(cuda):
+    """A controller and its compiled steps form a reference cycle, so the
+    cyclic collector frees their graphs at whatever allocation comes next,
+    even inside another step's capture, where CUDA refuses to destroy a
+    kept graph: the capture runs with the collector paused, and the
+    unreachable graph goes at the first collection after it."""
+    import gc
+    import weakref
+
+    from icem_torch.runtime.graphs import Compiled
+
+    class Planner:
+        def __init__(self):
+            self.step = Compiled(self.double, name="planner")
+
+        def double(self, x):
+            return 2 * x
+
+    x = torch.arange(8.0, device=cuda)
+    calls = []
+    planners = []
+
+    def shift(x):
+        calls.append(len(calls))
+        if len(calls) == 2:  # the capture, after one warm-up call
+            planners.clear()  # the planner's cycle is garbage, and young
+            gc.set_threshold(1, 1, 1)  # the next allocation collects the young
+            assert sum(len(j) for j in [[i] for i in range(1000)]) == 1000
+        return x + 1
+
+    threshold = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(10**6, 10**6, 10**6)  # no collection until the capture
+    try:
+        planners.append(Planner())
+        torch.testing.assert_close(planners[0].step(x), 2 * x)  # captured, its graph kept
+        gone = weakref.ref(planners[0])
+        out = Compiled(shift, name="shift")(x)
+    finally:
+        gc.set_threshold(*threshold)
+    torch.testing.assert_close(out, x + 1)
+    assert len(calls) == 2
+    gc.collect()
+    assert gone() is None
 
 
 # -- the sharded planner as a compiled step, over the one-rank NCCL group -----
@@ -315,7 +369,7 @@ def _sharded_steps(planner, cuda, steps: int, eager: bool, monkeypatch):
     assert ctrl._group.backend == "nccl" and not ctrl.plans_eagerly
     state = env.init_state(torch.Generator(device=cuda).manual_seed(0))
     obs = env.observation(state)
-    pr.LAUNCHES = sr.LAUNCHES = 0
+    before = metrics.counters()
     out = []
     with graphs.disable_graphs() if eager else contextlib.nullcontext():
         ctrl.beginning_of_rollout(observation=obs, state=state)
@@ -327,7 +381,7 @@ def _sharded_steps(planner, cuda, steps: int, eager: bool, monkeypatch):
                               if hasattr(st, k)])
             state, obs, _, _ = env.step(state, torch.as_tensor(a, device=cuda))
     assert ctrl._pstate.rank_stream.step == steps
-    return out, (pr.LAUNCHES, sr.LAUNCHES), ctrl._plan_impl().body.num_keys, waits
+    return out, _launches(before), ctrl._plan_impl().body.num_keys, waits
 
 
 @pytest.mark.parametrize("planner", ["icem", "cem"])
@@ -339,9 +393,10 @@ def test_compiled_sharded_plan_steps_give_the_eager_bits(cuda, planner, monkeypa
     from icem_torch.runtime import graphs
 
     eager, eager_launches, _, _ = _sharded_steps(planner, cuda, 5, True, monkeypatch)
-    replays = graphs.REPLAYS
+    replays = metrics.counter("graphs.replays")
     graph, graph_launches, keys, waits = _sharded_steps(planner, cuda, 5, False, monkeypatch)
-    assert graphs.REPLAYS - replays == 5 and keys == (2 if planner == "icem" else 1)
+    assert metrics.counter("graphs.replays") - replays == 5
+    assert keys == (2 if planner == "icem" else 1)
     assert waits == [0] * 5
     assert graph_launches == eager_launches and sum(eager_launches) == 4 * 5
     for step, (e, g) in enumerate(zip(eager, graph, strict=True)):
@@ -379,3 +434,92 @@ def test_compiled_sharded_device_episode_gives_the_eager_bits(cuda):
     assert len(graph) == len(eager) == 6
     for k in eager.field_names:
         np.testing.assert_array_equal(graph[k], eager[k], err_msg=k)
+
+
+# -- the trace's phase markers inside the captured control step ---------------
+
+def _blitz_control_step(cuda):
+    """The device episode's compiled control step of HalfCheetah iCEM at the
+    shipped i-cem-blitz population (40 / 32 / 25 fresh rows and 3 shifted
+    elites, h 30), run once (the first-step key), and the next step's
+    inputs."""
+    from icem_torch.controllers.icem import MpcICem
+    from icem_torch.models.ground_truth import GroundTruthModel
+    from icem_torch.runtime.rollout import RolloutManager
+
+    env = HalfCheetah(exclude_current_positions_from_observation=False)
+    ctrl = MpcICem(env=env, forward_model=GroundTruthModel(env=env), horizon=30,
+                   num_simulated_trajectories=40, seed=3, device=cuda,
+                   action_sampler_params=dict(elites_size=10, opt_iterations=3,
+                                              fraction_elites_reused=0.3))
+    step = RolloutManager(env, dict(task_horizon=20), device=cuda)._control_step(ctrl)
+    state, obs = env.reset_with_mode(torch.Generator(device=cuda).manual_seed(0), "train")
+    pstate = ctrl.init_plan_state(env.obs_dim, torch.Generator(device=cuda).manual_seed(1))
+    pstate, state, obs, done, _ = step(pstate, state, obs, torch.zeros((), device=cuda), None)
+    return step, (pstate, state, obs, done, None)
+
+
+def _leaves_equal(a, b) -> bool:
+    from torch.utils import _pytree as pytree
+
+    for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b), strict=True):
+        if isinstance(x, torch.Generator):
+            x, y = x.get_state(), y.get_state()
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            return False
+    return True
+
+
+def test_phase_markers_stay_off_until_traced_and_leave_the_bits(cuda):
+    """The captured control step holds 11 markers (a step's, 3 x noise /
+    rollout / select, the env step's) as disabled nodes: 10 replays leave
+    the ring as it was; with tracing on, 10 replays stamp 110 times in phase
+    order; off again, none. The outputs are the same bits either way, and
+    B1 counts 4 launches and 43 + 32 + 25 + 1 rows a step."""
+    step, args = _blitz_control_step(cuda)
+    gen, g0 = args[0].generator, args[0].generator.get_state()
+
+    def replay():
+        gen.set_state(g0)
+        return step(*args)
+
+    off = replay()  # captures the steady key
+    metrics.reset()
+    before = metrics.counters()
+    for _ in range(10):
+        assert _leaves_equal(replay(), off)
+    assert metrics.marker_stamps() == []
+    grown = metrics.since(before)
+    assert grown["b1.launches"] == 40 and grown["b1.rows"] == 10 * (43 + 32 + 25 + 1)
+    metrics.tracing(True)
+    try:
+        for _ in range(10):
+            assert _leaves_equal(replay(), off)
+    finally:
+        metrics.tracing(False)
+    stamps = metrics.marker_stamps()
+    assert stamps[0::2] == [0, 1, 2, 3, 1, 2, 3, 1, 2, 3, 4] * 10
+    assert all(b >= a for a, b in zip(stamps[1::2], stamps[3::2]))
+    per = metrics.device_phases()
+    assert set(per) == {"plan.noise", "plan.rollout", "plan.select", "env.step"}
+    assert all(len(ms) == 10 and min(ms) > 0 for ms in per.values())
+    assert _leaves_equal(replay(), off)
+    assert len(metrics.marker_stamps()) == 2 * 110
+    metrics.reset()
+
+
+def test_phase_markers_run_eagerly_only_while_traced(cuda):
+    from icem_torch.runtime.graphs import disable_graphs
+
+    step, args = _blitz_control_step(cuda)
+    metrics.reset()
+    with disable_graphs():
+        step(*args)
+        assert metrics.marker_stamps() == []
+        metrics.tracing(True)
+        try:
+            step(*args)
+        finally:
+            metrics.tracing(False)
+    assert metrics.marker_stamps()[0::2] == [0, 1, 2, 3, 1, 2, 3, 1, 2, 3, 4]
+    metrics.reset()

@@ -145,21 +145,23 @@ def test_run_without_a_device_raises_where_there_is_no_card(monkeypatch, tmp_pat
 
 
 def test_metrics_logger_writes_jsonl_timers_and_a_device_trace(tmp_path):
+    from icem_torch.runtime import metrics
     from icem_torch.runtime.metrics import MetricsLogger
 
     logger = MetricsLogger(str(tmp_path), use_tensorboard=False)
     logger.log(1.5, key="a")
     logger.log(2.5, key="a")
-    with logger.phase_timer("plan", step=7):
-        pass
     with logger.device_trace(str(tmp_path / "trace")):
-        torch.ones(3).sum()
+        with metrics.span("plan"):
+            torch.ones(3).sum()
     logger.close()
+    metrics.reset()
     lines = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
-    assert [(e["key"], e["value"], e["step"]) for e in lines[:2]] == [("a", 1.5, 0), ("a", 2.5, 1)]
-    assert lines[2]["key"] == "plan_time" and lines[2]["step"] == 7
+    assert [(e["key"], e["value"], e["step"]) for e in lines] == [("a", 1.5, 0), ("a", 2.5, 1)]
     assert logger.step_per_key == {"a": 2}
-    assert json.load(open(tmp_path / "trace" / "trace.json"))["traceEvents"]
+    events = json.load(open(tmp_path / "trace" / "trace.json"))["traceEvents"]
+    # the program's span is a range of the trace
+    assert any(e.get("name") == "plan" and e.get("ph") == "X" for e in events)
 
 
 def test_set_seed_seeds_numpy_and_the_env():

@@ -919,20 +919,24 @@ def phase_switch_decisions(device, cfg, steps: int = SWITCH_STEPS):
 
 def phase_planar_build_report(info, models):
     """The planar kernel's resources at each shape (``models``: name ->
-    model): ptxas's registers, stack and spills, the lanes per trajectory,
-    the dynamic shared memory per block (its groups' workspaces) and the
-    warps an SM holds at once."""
+    model) and each of its two instantiations: ptxas's registers, stack and
+    spills, the lanes per trajectory, the dynamic shared memory per block
+    (its groups' workspaces) and the warps an SM holds at once."""
+    from icem_torch.ops import planar_rollout as pr
     from icem_torch.ops._build import load_library
-    from icem_torch.ops.planar_rollout import occupancy
 
     for name, model in models.items():
-        rep = occupancy(load_library()[0], info.ptxas_log, model)
-        check(rep["warps_per_sm"] > 0, f"the planar kernel fits no block on an SM: {rep}")
-        log(f"[build] planar kernel {name} <{rep['shape']}>: {rep['registers']} registers, "
-            f"{rep['stack']} bytes stack, {rep['spill_stores']} bytes spill stores, "
-            f"{rep['spill_loads']} bytes spill loads; {rep['lanes']} lanes per trajectory; "
-            f"{rep['smem_per_block']} bytes of shared memory per block of 4 warps; "
-            f"{rep['warps_per_sm']} resident warps per SM")
+        for width, label in enumerate(WIDTH_NAMES):
+            rep = pr.occupancy(load_library()[0], info.ptxas_log, model, width)
+            check(rep["warps_per_sm"] > 0, f"the planar kernel fits no block on an SM: {rep}")
+            check(rep["lanes"] == (pr.THROUGHPUT_LANES if width == pr.THROUGHPUT
+                                   else pr.latency_lanes(pr.kernel_shape(model))),
+                  f"the {label} instantiation's lanes disagree with the host's rule: {rep}")
+            log(f"[build] planar kernel {name} <{rep['shape']}>, {label}: {rep['registers']} "
+                f"registers, {rep['stack']} bytes stack, {rep['spill_stores']} bytes spill "
+                f"stores, {rep['spill_loads']} bytes spill loads; {rep['lanes']} lanes per "
+                f"trajectory; {rep['smem_per_block']} bytes of shared memory per block; "
+                f"{rep['warps_per_sm']} resident warps per SM")
 
 
 # csrc/planar_step.cuh::PlanarProfGroup, in order
@@ -946,8 +950,10 @@ def phase_planar_profile(device, shapes):
     """Where a group's cycles go inside the planar kernel: the profile build
     (the port's kernel plus marks at which lane 0 of each group charges the
     clock64() cycles since the last mark to the phase group that just
-    ended), launched at the plan step's first shape; trajectory 0's group
-    over the last launch. These launches count nothing."""
+    ended), launched at the plan step's first shape through the instantiation
+    the rule picks, and at i-cem-blitz's first shape, P = 43, h = 30, through
+    each; trajectory 0's group over the last launch. These launches count
+    nothing."""
     from icem_torch.envs.cheetah import HalfCheetah
     from icem_torch.ops import _build
     from icem_torch.ops import planar_rollout as pr
@@ -957,21 +963,66 @@ def phase_planar_profile(device, shapes):
     read = lib.planar_profile_read
     read.restype, read.argtypes = ctypes.c_int, [ctypes.c_void_p]
     model = HalfCheetah().model
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     P, h = shapes[0]
-    Q, QD, A = _seeded_rollout_inputs(model, P, h, device, SEED)
-    kernel = pr.bind(lib, model)
-    ms = cuda_ms(lambda: pr.launch_bound(kernel, Q, QD, A), reps=3)
-    rep = pr.occupancy(lib, info.ptxas_log, model)
-    cycles = (ctypes.c_longlong * len(PLANAR_PROFILE_GROUPS))()
-    check(read(cycles) == len(PLANAR_PROFILE_GROUPS), "planar_profile_read failed")
-    total = sum(cycles)
-    check(total > 0 and min(cycles) >= 0, f"bad planar profile {list(cycles)}")
-    per_substep = total / (h * model.n_substeps)
-    log(f"[profile] planar kernel HalfCheetah, profile build ({rep['registers']} registers, "
-        f"{rep['warps_per_sm']} warps per SM): {ms:.4f} ms per launch at P={P} h={h}; "
-        f"trajectory 0's group, {total} cycles over {h} steps ({per_substep:.0f} per "
-        f"substep): " + ", ".join(f"{g} {100.0 * c / total:.2f} %" for g, c in
-                                   sorted(zip(PLANAR_PROFILE_GROUPS, cycles), key=lambda x: -x[1])))
+    cases = [(P, h, pr.takes_latency(P, pr.kernel_shape(model), sms)),
+             (BLITZ_FIRST_ROWS, h, pr.THROUGHPUT), (BLITZ_FIRST_ROWS, h, pr.LATENCY)]
+    for P, h, width in cases:
+        Q, QD, A = _seeded_rollout_inputs(model, P, h, device, SEED)
+        kernel = pr.bind(lib, model, width)
+        ms = cuda_ms(lambda: pr.launch_bound(kernel, Q, QD, A), reps=3)
+        rep = pr.occupancy(lib, info.ptxas_log, model, width)
+        cycles = (ctypes.c_longlong * len(PLANAR_PROFILE_GROUPS))()
+        check(read(cycles) == len(PLANAR_PROFILE_GROUPS), "planar_profile_read failed")
+        total = sum(cycles)
+        check(total > 0 and min(cycles) >= 0, f"bad planar profile {list(cycles)}")
+        per_substep = total / (h * model.n_substeps)
+        log(f"[profile] planar kernel HalfCheetah, {WIDTH_NAMES[width]}, profile build "
+            f"({rep['registers']} registers, {rep['lanes']} lanes, {rep['warps_per_sm']} warps "
+            f"per SM): {ms:.4f} ms per launch at P={P} h={h}; trajectory 0's group, {total} "
+            f"cycles over {h} steps ({per_substep:.0f} per substep): "
+            + ", ".join(f"{g} {100.0 * c / total:.2f} %" for g, c in
+                        sorted(zip(PLANAR_PROFILE_GROUPS, cycles), key=lambda x: -x[1])))
+
+
+# the rows of i-cem-blitz's first planar launch (40 + 3 shifted elites)
+BLITZ_FIRST_ROWS = 43
+WIDTH_NAMES = ("throughput", "latency")
+# B1's width sweep: the populations at which both instantiations are timed
+# (the 16-lane shapes cross over from latency to throughput at 2,112 / 2,113)
+WIDTH_SWEEP_P = (1, 13, 25, 43, 97, 256, 1024, 2112, 2113, 4096, 6144, 32921)
+
+
+def phase_width_sweep(device, h: int = 30, envs=("HalfCheetah", "PlanarHumanoidStandup"),
+                      populations=WIDTH_SWEEP_P):
+    """ms per launch of both B1 instantiations over ``populations`` at
+    ``h``, by default on HalfCheetah and the planar humanoid (the two 16-lane
+    shapes) at h = 30, CUDA events, on strided rows as the env passes them;
+    beside each, the one the rule (``takes_latency``) picks. Returns {(env,
+    P): (throughput_ms, latency_ms, picked)}."""
+    from icem_torch.envs import env_from_string
+    from icem_torch.ops import planar_rollout as pr
+    from icem_torch.ops._build import load_library
+
+    lib = load_library()[0]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {}
+    for name in envs:
+        model = env_from_string(name).model
+        shape = pr.kernel_shape(model)
+        kernels = [pr.bind(lib, model, w) for w in (pr.THROUGHPUT, pr.LATENCY)]
+        for P in populations:
+            Q, QD, A = _seeded_rollout_inputs(model, P, h, device, SEED + P)
+            reps = 200 if h == 1 else 20 if P <= 4096 else 10
+            ms = [cuda_ms(lambda k=k: pr.launch_bound(k, Q, QD, A), reps=reps, warmup=2)
+                  for k in kernels]
+            picked = int(pr.takes_latency(P, shape, sms))
+            out[(name, P)] = (*ms, picked)
+            log(f"[times] B1 widths, {name} <{', '.join(map(str, shape))}> P={P} h={h}: "
+                f"throughput {ms[0]:.4f} ms, latency ({pr.latency_lanes(shape)} lanes) "
+                f"{ms[1]:.4f} ms per launch, latency / throughput {ms[1] / ms[0]:.3f}; the rule "
+                f"takes {WIDTH_NAMES[picked]} on {sms} SMs, {ms[picked]:.4f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3157,6 +3208,9 @@ def main() -> int:
     phase_colored_noise(device)
     path = phase_main_path(device, cfg, plan_steps=20)
     times = phase_times(device, shapes, plain_ms)
+    phase_width_sweep(device)
+    phase_width_sweep(device, h=1, envs=["HalfCheetah"] + [name for name, _ in PLANAR_ENVS],
+                      populations=(1,))
     phase_switch_decisions(device, cfg)
     phase_planar_profile(device, shapes)
     log(f"[wall] {time.perf_counter() - t_start:.1f} s: the HalfCheetah path")

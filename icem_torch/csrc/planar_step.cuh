@@ -12,10 +12,12 @@
 //   optional fluid drag, b = M qd + dt * rhs, two triangular solves, the
 //   max_qd clip and a semi-implicit Euler update.
 //
-// Layout: a group of kPlanarLanes lanes per trajectory. What another lane
-// reads (q, qd, the packed lower triangles of M and L, the inverse pivots,
-// the frames, the per-body and per-geom terms, the right-hand side) lives in
-// the trajectory's workspace (Work), in shared memory on the device; what
+// Layout: a group of G lanes per trajectory (a template argument: the
+// kernel has a throughput and a latency instantiation, planar_rollout.cu).
+// What another lane reads (q, qd, the packed lower triangles of M and L,
+// the inverse pivots, the frames, the per-body and per-geom terms, the
+// right-hand side) lives in the trajectory's workspace (Work), in shared
+// memory on the device; what
 // only the owning lane reads (its dofs' bias and tau_ctrl) stays in its
 // registers (Regs). The step is a sequence of phases, each a function
 // (params, workspace, lane[, regs]): lane l takes items l, l + G, l + 2G,
@@ -56,9 +58,24 @@ namespace icem {
 // one-element placeholder that no loop reads.
 PLANAR_CE int at_least_one(int n) { return n > 0 ? n : 1; }
 
-// The lanes that run one trajectory: a group of consecutive lanes of a warp.
-constexpr int kPlanarLanes = 2;
-static_assert(32 % kPlanarLanes == 0, "the groups of lanes tile the warp");
+// The lanes that run one trajectory, a group of consecutive lanes of a warp,
+// in B1's two instantiations. Throughput: 2, so that the planner's largest
+// population fills the card in one wave. Latency: the smallest power of two
+// that holds the shape's largest item count, so that each lane takes at most
+// one dof, body, geom and row in every phase and each phase is one pass.
+constexpr int kPlanarThroughputLanes = 2;
+PLANAR_CE int planar_latency_lanes(int ndof, int nbody, int ngeom, int nact) {
+  int n = ndof > nbody ? ndof : nbody;
+  n = n > ngeom ? n : ngeom;
+  n = n > nact ? n : nact;
+  int g = 2;
+  while (g < n) g *= 2;
+  return g;
+}
+template <int NDOF, int NBODY, int NGEOM, int NACT, int LATENCY>
+PLANAR_CE int planar_lanes() {
+  return LATENCY ? planar_latency_lanes(NDOF, NBODY, NGEOM, NACT) : kPlanarThroughputLanes;
+}
 
 // Phase groups of a control step, for the profile build (-DICEM_PLANAR_PROFILE):
 // lane 0 of the group charges the clock64() cycles since the last mark to
@@ -126,14 +143,14 @@ struct PaddedTo : Core {
 template <class Core>
 struct PaddedTo<Core, 0> : Core {};
 
-template <int NDOF, int NBODY, int NGEOM, int NACT>
+template <int NDOF, int NBODY, int NGEOM, int NACT, int G>
 struct Planar {
   using Params = PlanarParams<NDOF, NBODY, NGEOM, NACT>;
   static constexpr bool FREE = (NDOF == NBODY + 2);
   static_assert(FREE || NDOF == NBODY, "a planar tree has NBODY or NBODY+2 dofs");
   static_assert(NBODY <= 31, "ancestor chains are 32-bit masks");
+  static_assert(G >= 2 && G <= 32 && 32 % G == 0, "the groups of lanes tile the warp");
   static constexpr int NTRI = NDOF * (NDOF + 1) / 2;
-  static constexpr int G = kPlanarLanes;
   static constexpr int NGEOM1 = at_least_one(NGEOM);
   static constexpr int KD = (NDOF + G - 1) / G;  // dofs a lane owns
 
@@ -649,14 +666,14 @@ struct Planar {
 // [h, P, NDOF]. A group without a trajectory of its own (store == false)
 // runs the phases on p's inputs with the others of its warp, and stores
 // nothing.
-template <int NDOF, int NBODY, int NGEOM, int NACT, class Lanes>
+template <int NDOF, int NBODY, int NGEOM, int NACT, int G, class Lanes>
 PLANAR_HD void planar_rollout_one(const PlanarParams<NDOF, NBODY, NGEOM, NACT>& m,
-                                  typename Planar<NDOF, NBODY, NGEOM, NACT>::Work& W,
+                                  typename Planar<NDOF, NBODY, NGEOM, NACT, G>::Work& W,
                                   const Lanes& for_lanes, const float* q0, long long ldq,
                                   const float* qd0, long long ldqd, const float* acts,
                                   float* qs, float* qds, long long P, int h, long long p,
                                   bool store) {
-  using Eng = Planar<NDOF, NBODY, NGEOM, NACT>;
+  using Eng = Planar<NDOF, NBODY, NGEOM, NACT, G>;
   for_lanes([&](int l) {
     Eng::template items<NDOF>(l, [&](int j, int) {
       W.q[j] = q0[p * ldq + j];

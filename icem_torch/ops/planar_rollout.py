@@ -3,7 +3,9 @@
 ``rollout_planar`` runs h control steps of ``n_substeps`` each for every
 trajectory of a population. On a CUDA tensor it launches the hand-written
 kernel of ``csrc/planar_rollout.cu`` (a group of lanes per trajectory over a
-shared-memory workspace); on a CPU tensor it runs
+shared-memory workspace), in one of its two instantiations: the throughput
+one (2 lanes a trajectory) where the population fills the card, the latency
+one (a lane per item) below that (``takes_latency``); on a CPU tensor it runs
 ``rollout_planar_reference``, the row engine of ``envs/physics/batched.py``
 looped over the horizon. There is no fallback from one to the other.
 
@@ -16,6 +18,7 @@ imagination path is valveless by design.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -126,31 +129,66 @@ def rollout_planar_reference(model: PlanarModel, Q, QD, ACTS):
     return torch.stack(qs), torch.stack(qds)
 
 
-# id(model) -> (model, (C launcher, packed parameter block)). The entry holds
+# B1's two instantiations (csrc/planar_rollout.cu), by their LATENCY index
+THROUGHPUT, LATENCY = 0, 1
+THROUGHPUT_LANES = 2
+# The latency instantiation runs while its warps fit the card at this many an
+# SM, two a scheduler. The sweep of both instantiations over P on the H100
+# (PERF.md §6) puts the crossover at 11.6-23 warps an SM by shape: the
+# 16-lane shapes' where their resident warps fill one wave, the Hopper's
+# first, its throughput instantiation being the leanest.
+LATENCY_WARPS_PER_SM = 8
+
+
+def latency_lanes(shape) -> int:
+    """G of the latency instantiation at ``shape`` <NDOF, NBODY, NGEOM, NACT>
+    (csrc/planar_step.cuh::planar_latency_lanes): the smallest power of two
+    that holds the largest item count, so each phase's item loop is one pass."""
+    g = THROUGHPUT_LANES
+    while g < max(shape):
+        g *= 2
+    return g
+
+
+def takes_latency(P: int, shape, sms: int) -> bool:
+    """Whether a launch of P rows at ``shape`` on a card of ``sms`` SMs takes
+    the latency instantiation: its warps, 32 / G trajectories each, fit at
+    LATENCY_WARPS_PER_SM an SM. Otherwise the throughput one (G = 2)."""
+    per_warp = 32 // latency_lanes(shape)
+    return -(-P // per_warp) <= LATENCY_WARPS_PER_SM * sms
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# id(model) -> (model, (throughput kernel, latency kernel)). The entry holds
 # the model, so its id cannot be reused by another model while it lives.
 _LAUNCHERS: dict = {}
 
 
-def _launcher(model: PlanarModel):
-    """The model's C launcher and parameter block, resolved and packed once
-    per model, so that a launch only makes the ctypes call."""
+def _launchers(model: PlanarModel):
+    """The model's two bound kernels (``bind``), resolved and packed once per
+    model, so that a launch only makes the ctypes call."""
     hit = _LAUNCHERS.get(id(model))
     if hit is not None and hit[0] is model:
         return hit[1]
     from icem_torch.ops._build import load_library
 
-    kernel = bind(load_library()[0], model)
-    _LAUNCHERS[id(model)] = (model, kernel)
-    return kernel
+    lib = load_library()[0]
+    kernels = (bind(lib, model, THROUGHPUT), bind(lib, model, LATENCY))
+    _LAUNCHERS[id(model)] = (model, kernels)
+    return kernels
 
 
-def bind(lib, model: PlanarModel):
-    """(fn, params): the C launcher of the model's shape in ``lib`` (a
-    ctypes.CDLL of ``csrc/planar_rollout.cu``) and the model's packed
-    parameter block."""
+def bind(lib, model: PlanarModel, latency: int = THROUGHPUT):
+    """(fn, params): the C launcher of the model's shape and the given
+    instantiation (THROUGHPUT or LATENCY) in ``lib`` (a ctypes.CDLL of
+    ``csrc/planar_rollout.cu``) and the model's packed parameter block."""
     shape = "_".join(map(str, kernel_shape(model)))
     try:
-        fn = getattr(lib, f"planar_rollout_{shape}")
+        fn = getattr(lib, f"planar_rollout_{shape}_{int(latency)}")
         nbytes = getattr(lib, f"planar_params_bytes_{shape}")
     except AttributeError:
         raise ValueError(
@@ -168,16 +206,19 @@ def bind(lib, model: PlanarModel):
     return fn, params
 
 
-def occupancy(lib, ptxas_log: str, model: PlanarModel) -> dict:
-    """The kernel's resources at the model's shape, from a build of
-    ``csrc/planar_rollout.cu`` (``lib``, a ctypes.CDLL, and its ptxas log):
-    registers, stack and spill bytes, the lanes per trajectory, dynamic
-    shared memory per block and the warps an SM holds at once."""
+def occupancy(lib, ptxas_log: str, model: PlanarModel, latency: int = THROUGHPUT) -> dict:
+    """The resources of one instantiation (THROUGHPUT or LATENCY) at the
+    model's shape, from a build of ``csrc/planar_rollout.cu`` (``lib``, a
+    ctypes.CDLL, and its ptxas log): registers, stack and spill bytes, the
+    lanes per trajectory, dynamic shared memory per block and the warps an SM
+    holds at once."""
     from icem_torch.ops import _build
 
-    lanes = lib.planar_lanes_per_trajectory
+    shape = (*kernel_shape(model), int(latency))
+    lanes = getattr(lib, "planar_lanes_" + "_".join(map(str, shape)))
     lanes.restype, lanes.argtypes = ctypes.c_int, []
-    return dict(_build.occupancy(lib, ptxas_log, "planar", kernel_shape(model)), lanes=lanes())
+    return dict(_build.occupancy(lib, ptxas_log, "planar", shape),
+                shape=", ".join(map(str, kernel_shape(model))), lanes=lanes())
 
 
 def launch_bound(kernel, Q, QD, ACTS):
@@ -204,10 +245,16 @@ def launch_bound(kernel, Q, QD, ACTS):
 
 
 def _launch(model: PlanarModel, Q, QD, ACTS):
-    """One launch, counted as ``b1.launches`` and its rows as ``b1.rows``."""
-    out = launch_bound(_launcher(model), Q, QD, ACTS)
+    """One launch of the instantiation ``takes_latency`` picks, counted as
+    ``b1.launches`` (and ``b1.launches.latency`` on the latency one) and its
+    rows as ``b1.rows``."""
+    P = ACTS.shape[0]
+    latency = takes_latency(P, kernel_shape(model), _sm_count(Q.device.index))
+    out = launch_bound(_launchers(model)[latency], Q, QD, ACTS)
     metrics.count("b1.launches")
-    metrics.count("b1.rows", ACTS.shape[0])
+    if latency:
+        metrics.count("b1.launches.latency")
+    metrics.count("b1.rows", P)
     return out
 
 

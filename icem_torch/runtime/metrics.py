@@ -17,7 +17,8 @@ Beside the logger, one store of spans and counters for the whole process:
   outermost one. Records stay in memory until ``spans()`` or ``reset()``
   reads them.
 - ``count(name, n)``: always on, one dict update; ``counters()`` is a
-  snapshot. The kernels count ``b1.launches`` / ``b1.rows`` and
+  snapshot. The kernels count ``b1.launches`` / ``b1.rows`` (and
+  ``b1.launches.latency``, the launches of B1's latency instantiation) and
   ``b2.launches`` / ``b2.rows``, the compiled steps ``graphs.captures``,
   ``graphs.capture_s`` and ``graphs.replays`` (a replay adds what its
   capture counted).

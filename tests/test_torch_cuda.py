@@ -136,6 +136,63 @@ def test_every_planar_env_step_is_one_launch(cuda, name):
     assert new_state.device.type == "cuda" and tuple(obs.shape) == (env.obs_dim,)
 
 
+# -- B1's two instantiations: throughput (G = 2) and latency (a lane per item)
+
+def _crossover(model) -> int:
+    """The largest P that takes the latency instantiation on this card."""
+    shape, sms = pr.kernel_shape(model), pr._sm_count(torch.cuda.current_device())
+    P = 1
+    while pr.takes_latency(P + 1, shape, sms):
+        P += 1
+    return P
+
+
+@pytest.mark.parametrize("name", ["cheetah", "PlanarHumanoidStandup"])
+@pytest.mark.parametrize("P", [1, 25, 32, 43, "last latency", "first throughput"])
+def test_both_widths_give_the_same_bits(cuda, name, P):
+    """Each phase computes an item with the same expression whichever lane
+    takes it, so both instantiations give the same states at the planner's
+    rows, the real step's and either side of the rule's crossover; and
+    ``rollout_planar`` launches the one the rule picks."""
+    from icem_torch.ops._build import load_library
+
+    env = env_from_string(name, **PLANAR[name])
+    if isinstance(P, str):
+        P = _crossover(env.model) + (P == "first throughput")
+    Q, QD, A = _planar_inputs(env, P, 30, cuda)
+    lib = load_library()[0]
+    out = [pr.launch_bound(pr.bind(lib, env.model, w), Q, QD, A)
+           for w in (pr.THROUGHPUT, pr.LATENCY)]
+    torch.cuda.synchronize()
+    (qs, qds), (qs_l, qds_l) = out
+    assert bool(torch.isfinite(qs).all() and torch.isfinite(qds).all())
+    assert torch.equal(qs_l, qs) and torch.equal(qds_l, qds)
+    before = metrics.counters()
+    qs_r, _ = pr.rollout_planar(env.model, Q, QD, A)
+    grown = metrics.since(before)
+    latency = pr.takes_latency(P, pr.kernel_shape(env.model), pr._sm_count(cuda.index or 0))
+    assert grown.get("b1.launches.latency", 0) == int(latency) and grown["b1.launches"] == 1
+    assert torch.equal(qs_r, qs)
+
+
+def test_latency_launches_are_counted(cuda):
+    """An i-cem-blitz control step launches B1 at 43 / 32 / 25 rows and the
+    real step's one, all four on the latency instantiation; the main path's
+    32,921 rows take the throughput one."""
+    step, args = _blitz_control_step(cuda)
+    before = metrics.counters()
+    step(*args)
+    torch.cuda.synchronize()
+    grown = metrics.since(before)
+    assert grown["b1.launches"] == 4 and grown["b1.launches.latency"] == 4
+    model = make_cheetah_model(dt=0.05, n_substeps=20)
+    Q, QD, A = _inputs(32921, 2, cuda)
+    before = metrics.counters()
+    pr.rollout_planar(model, Q, QD, A)
+    grown = metrics.since(before)
+    assert grown["b1.launches"] == 1 and "b1.launches.latency" not in grown
+
+
 # ---------------------------------------------------------------------------
 # the spatial rollout kernel (B2)
 

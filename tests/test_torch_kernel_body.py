@@ -3,7 +3,8 @@
 ``csrc/planar_step.cuh`` holds the per-trajectory physics once, for nvcc and
 for a host compiler, as phases of a group of lanes over a workspace. Here g++
 builds it through the test-only shim ``csrc/planar_rollout_host.cpp``, which
-runs each phase for the group's lanes in turn, and it is held against the
+runs each phase for the group's lanes in turn, at the lanes of each of the
+kernel's two instantiations, and it is held against the
 plain version, ``rollout_planar_reference``, with the kernel's own parameter
 packing and layouts. Tolerance 1e-4: the same float32 operations in another
 order.
@@ -90,11 +91,12 @@ def _rows(x):
     return x, x.strides[0] // x.itemsize
 
 
-def _host_rollout(lib, model, Q, QD, A, descending=False):
-    """The body run lane by lane, in the kernel's layouts: Q, QD [P, nd]
-    with a row stride and A [P, h, na] as they are, (qs, qds) [h, P, nd]."""
+def _host_rollout(lib, model, Q, QD, A, descending=False, latency=pr.THROUGHPUT):
+    """The body run lane by lane at the G of one of the kernel's
+    instantiations, in the kernel's layouts: Q, QD [P, nd] with a row stride
+    and A [P, h, na] as they are, (qs, qds) [h, P, nd]."""
     shape = "_".join(map(str, pr.kernel_shape(model)))
-    fn = getattr(lib, f"planar_rollout_host_{shape}")
+    fn = getattr(lib, f"planar_rollout_host_{shape}_{latency}")
     fn.restype = ctypes.c_int
     ptr, ll = ctypes.c_void_p, ctypes.c_longlong
     fn.argtypes = [ptr, ptr, ll, ptr, ll, ptr, ptr, ptr, ll, ctypes.c_int, ctypes.c_int]
@@ -118,8 +120,14 @@ def _inputs(model, P, h, seed):
     return Q, QD, A
 
 
-@pytest.mark.parametrize("name", list(MODELS))
-def test_kernel_body_matches_plain_version(host_lib, name):
+# every shape at both of the kernel's widths: the throughput one (G = 2)
+# under the shape's name, the latency one (a lane per item) beside it
+WIDTHS = ([pytest.param(name, pr.THROUGHPUT, id=name) for name in MODELS]
+          + [pytest.param(name, pr.LATENCY, id=f"{name}-latency") for name in MODELS])
+
+
+@pytest.mark.parametrize("name, latency", WIDTHS)
+def test_kernel_body_matches_plain_version(host_lib, name, latency):
     model = MODELS[name]()
     P, h = 64, 5
     rng = np.random.default_rng(0)
@@ -127,12 +135,13 @@ def test_kernel_body_matches_plain_version(host_lib, name):
     Q = rng.uniform(-0.1, 0.1, (P, nd)).astype(np.float32)
     QD = (0.1 * rng.standard_normal((P, nd))).astype(np.float32)
     A = rng.uniform(-1, 1, (P, h, na)).astype(np.float32)
-    qs, qds = _host_rollout(host_lib, model, Q, QD, A)
+    qs, qds = _host_rollout(host_lib, model, Q, QD, A, latency=latency)
     rq, rqd = pr.rollout_planar_reference(model, *map(torch.from_numpy, (Q, QD, A)))
     if name in AMPLIFIES_ROUNDOFF:
         # the gap a one-ulp change of the start positions opens in the body
         # itself, as in test_kernel_body_over_the_whole_horizon
-        qs_u, qds_u = _host_rollout(host_lib, model, np.nextafter(Q, np.float32(np.inf)), QD, A)
+        qs_u, qds_u = _host_rollout(host_lib, model, np.nextafter(Q, np.float32(np.inf)), QD, A,
+                                    latency=latency)
         for got, want, ulp, atol in ((qs, rq, qs_u, 1e-4), (qds, rqd, qds_u, 1e-3)):
             gap = np.abs(got - want.numpy()).max()
             assert gap < max(atol, 4 * np.abs(got - ulp).max()), gap
@@ -167,23 +176,23 @@ def test_kernel_body_over_the_whole_horizon(host_lib):
     assert late < 4 * late_ulp, (late, late_ulp)
 
 
-@pytest.mark.parametrize("name", list(MODELS))
-def test_lane_order_does_not_change_the_result(host_lib, name):
+@pytest.mark.parametrize("name, latency", WIDTHS)
+def test_lane_order_does_not_change_the_result(host_lib, name, latency):
     """On the card the lanes of a group run a phase at once. A phase that
     read a slot another lane writes in the same phase would race there; here
     it makes the two lane orders disagree, so they must agree to the bit."""
     model = MODELS[name]()
     Q, QD, A = _inputs(model, P=8, h=4, seed=5)
-    qs, qds = _host_rollout(host_lib, model, Q, QD, A)
-    qs_r, qds_r = _host_rollout(host_lib, model, Q, QD, A, descending=True)
+    qs, qds = _host_rollout(host_lib, model, Q, QD, A, latency=latency)
+    qs_r, qds_r = _host_rollout(host_lib, model, Q, QD, A, descending=True, latency=latency)
     # the shim fills each workspace with NaNs: a slot read unwritten shows
     assert np.all(np.isfinite(qs)) and np.all(np.isfinite(qds))
     np.testing.assert_array_equal(qs, qs_r)
     np.testing.assert_array_equal(qds, qds_r)
 
 
-@pytest.mark.parametrize("name", list(MODELS))
-def test_kernel_body_reads_strided_rows(host_lib, name):
+@pytest.mark.parametrize("name, latency", WIDTHS)
+def test_kernel_body_reads_strided_rows(host_lib, name, latency):
     """The env passes Q and QD as column slices of its [P, 2 nd + k] state;
     the body reads them at that row stride and gives what it gives on
     contiguous copies, to the bit."""
@@ -193,11 +202,61 @@ def test_kernel_body_reads_strided_rows(host_lib, name):
     states = np.concatenate([Q, QD, np.full((len(Q), 3), np.nan, np.float32)], axis=1)
     q_view, qd_view = states[:, :n], states[:, n:2 * n]
     assert _rows(q_view)[1] == _rows(qd_view)[1] == 2 * n + 3
-    qs, qds = _host_rollout(host_lib, model, q_view, qd_view, A)
-    qs_c, qds_c = _host_rollout(host_lib, model, Q, QD, A)
+    qs, qds = _host_rollout(host_lib, model, q_view, qd_view, A, latency=latency)
+    qs_c, qds_c = _host_rollout(host_lib, model, Q, QD, A, latency=latency)
     assert np.all(np.isfinite(qs)) and np.all(np.isfinite(qds))
     np.testing.assert_array_equal(qs, qs_c)
     np.testing.assert_array_equal(qds, qds_c)
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_both_widths_give_the_same_bits(host_lib, name):
+    """Each phase computes an item with the same expression whichever lane
+    takes it, so the two instantiations' G give the same bits."""
+    model = MODELS[name]()
+    Q, QD, A = _inputs(model, P=16, h=5, seed=11)
+    qs, qds = _host_rollout(host_lib, model, Q, QD, A, latency=pr.THROUGHPUT)
+    qs_l, qds_l = _host_rollout(host_lib, model, Q, QD, A, latency=pr.LATENCY)
+    assert np.all(np.isfinite(qs)) and np.all(np.isfinite(qds))
+    np.testing.assert_array_equal(qs_l, qs)
+    np.testing.assert_array_equal(qds_l, qds)
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_lanes_per_trajectory_of_each_width(host_lib, name):
+    """The body's G at each width is the one the host's rule assumes: 2, and
+    the smallest power of two that holds the shape's largest item count."""
+    shape = pr.kernel_shape(MODELS[name]())
+    tag = "_".join(map(str, shape))
+    lanes = [getattr(host_lib, f"planar_lanes_{tag}_{w}") for w in (pr.THROUGHPUT, pr.LATENCY)]
+    for fn in lanes:
+        fn.restype = ctypes.c_int
+    assert [fn() for fn in lanes] == [pr.THROUGHPUT_LANES, pr.latency_lanes(shape)]
+    assert pr.latency_lanes(shape) == {"cheetah": 16, "planar_humanoid": 16, "hopper": 8,
+                                       "planar_ant": 8, "swimmer": 8, "arm": 2}[name]
+
+
+@pytest.mark.parametrize("P, latency", [(1, True), (25, True), (32, True), (43, True),
+                                        (97, True), (2112, True), (2113, False),
+                                        (32921, False)])
+def test_width_rule_follows_the_population(P, latency):
+    """HalfCheetah <9, 7, 6, 6> on 132 SMs: the latency instantiation (16
+    lanes, 2 trajectories a warp) while its warps fit 8 an SM, 2,112 rows."""
+    assert pr.takes_latency(P, (9, 7, 6, 6), 132) is latency
+
+
+def test_width_rule_scales_with_the_shape_and_the_card():
+    # 8 lanes (Hopper <6, 4, 3, 3>): 4 trajectories a warp, 4,224 rows on 132 SMs
+    assert pr.takes_latency(4224, (6, 4, 3, 3), 132)
+    assert not pr.takes_latency(4225, (6, 4, 3, 3), 132)
+    # a card with fewer SMs leaves the latency instantiation sooner
+    assert pr.takes_latency(96, (9, 7, 6, 6), 6)
+    assert not pr.takes_latency(97, (9, 7, 6, 6), 6)
+    # the throughput main path at pop 32,768 and the real step, at every shape
+    for shape in ((9, 7, 6, 6), (6, 4, 3, 3), (2, 2, 0, 2), (7, 5, 6, 4), (12, 10, 10, 9),
+                  (8, 6, 0, 5)):
+        assert not pr.takes_latency(32921, shape, 132)
+        assert pr.takes_latency(1, shape, 132)
 
 
 @pytest.mark.parametrize("name", list(MODELS))

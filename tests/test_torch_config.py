@@ -15,7 +15,7 @@ SETTINGS = sorted((ROOT / "settings").rglob("*.json"))
 
 
 def test_every_settings_file_is_found():
-    assert len(SETTINGS) == 35
+    assert len(SETTINGS) == 36
 
 
 @pytest.mark.parametrize("path", SETTINGS, ids=lambda p: str(p.relative_to(ROOT / "settings")))
@@ -81,3 +81,36 @@ def test_save_settings_to_json(tmp_path):
     jcfg.save_settings_to_json(p, str(tmp_path / "b"))
     assert (tmp_path / "a" / "settings.json").read_text() == \
         (tmp_path / "b" / "settings.json").read_text()
+
+
+def _flat(d, prefix=""):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def test_the_wide_setting_is_blitz_at_the_projects_width():
+    """``i-cem-wide`` resolves to pop 32,768 and 512 elites, every other key
+    as ``i-cem-blitz`` (the resolver lets a deeper ancestor win, so a
+    setting inheriting ``i-cem-blitz`` itself would get the defaults' beta)."""
+    from icem_torch.controllers.icem import ICemConfig
+
+    folder = ROOT / "settings" / "halfcheetah_running"
+    wide = tcfg.resolve_settings(str(folder / "i-cem-wide.json")).get_pickleable()
+    blitz = tcfg.resolve_settings(str(folder / "i-cem-blitz.json")).get_pickleable()
+    flat_wide, flat_blitz = _flat(wide), _flat(blitz)
+    changed = {k for k in set(flat_wide) | set(flat_blitz) if flat_wide.get(k) != flat_blitz.get(k)}
+    assert changed == {"controller_params.num_simulated_trajectories",
+                       "controller_params.action_sampler_params.elites_size", "model_dir"}
+    cp = wide["controller_params"]
+    asp = cp["action_sampler_params"]
+    assert cp["num_simulated_trajectories"] == 32768
+    assert (asp["elites_size"], asp["noise_beta"]) == (512, 0.25)
+    assert wide["model_dir"] == "results/icem/halfcheetah_running/i-cem-wide"
+    cfg = ICemConfig(num_simulated_trajectories=32768, horizon=cp["horizon"],
+                     factor_decrease_num=cp["factor_decrease_num"], action_dim=6, **asp)
+    assert cfg.population_schedule == (32768, 26214, 20971) and cfg.elites_kept == 153

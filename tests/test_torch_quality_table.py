@@ -60,7 +60,7 @@ def _both_run_config(monkeypatch, name, tmp_path):
 
 def test_config_list_is_the_jax_scripts():
     names = table.config_names()
-    assert len(names) == 19
+    assert len(names) == 20
     assert "pendulum/i-cem-blitz" in names and not any("defaults" in n for n in names)
     assert table.config_names("door,fpp") == ["door/i-cem-blitz", "fpp/i-cem-blitz"]
     assert table.TRUNCATE_ITERS == jax_table.TRUNCATE_ITERS
